@@ -1,0 +1,324 @@
+"""The genomics records that stage 2 reads and writes.
+
+A copy of the subset of `deepvariant_tpu.core.types` that call_variants
+needs: Variant and VariantCall (nucleus variants.proto:52-170) and
+CallVariantsOutput with its DebugInfo (deepvariant.proto:363-401), plus
+the info-map helpers they encode with. `encode` is byte-identical to the
+JAX package's, so the CVOs either package writes are interchangeable.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+from deepvariant_tpu_torch.core import protowire as pw
+
+
+# ---------------------------------------------------------------------------
+# Info maps: plain dict[str, list] <-> map<string, ListValue> wire format
+# (nucleus struct.proto:42-93; Value kinds: number=2, int=7, string=3, bool=4).
+# ---------------------------------------------------------------------------
+
+def _encode_value(v) -> bytes:
+    if isinstance(v, bool):
+        return pw.field_bool(4, v)
+    if isinstance(v, int):
+        return pw.field_varint(7, v)
+    if isinstance(v, float):
+        return pw.field_double(2, v)
+    if isinstance(v, bytes):
+        return pw.field_bytes(3, v)
+    if v is None:
+        return pw.field_varint(1, 0)
+    return pw.field_string(3, str(v))
+
+
+def _decode_value(buf):
+    for num, wt, val in pw.iter_fields(buf):
+        if num == 1:
+            return None
+        if num == 2:
+            return pw.decode_fixed64_double(val)
+        if num == 7:
+            return pw.varint_to_signed64(val)
+        if num == 3:
+            raw = bytes(val)
+            try:
+                return raw.decode("utf-8")
+            except UnicodeDecodeError:
+                return raw
+        if num == 4:
+            return bool(val)
+        if num == 6:
+            return _decode_list_value(val)
+    return None
+
+
+def _encode_list_value(values: Sequence) -> bytes:
+    return b"".join(pw.field_message(1, _encode_value(v)) for v in values)
+
+
+def _decode_list_value(buf) -> List:
+    return [_decode_value(val) for num, _, val in pw.iter_fields(buf) if num == 1]
+
+
+def encode_info_map(field_number: int, info: Dict[str, List]) -> bytes:
+    out = []
+    for key, values in info.items():
+        entry = pw.field_string(1, key) + pw.field_message(
+            2, _encode_list_value(values)
+        )
+        out.append(pw.field_message(field_number, entry))
+    return b"".join(out)
+
+
+def decode_info_entry(buf) -> tuple:
+    key, values = "", []
+    for num, _, val in pw.iter_fields(buf):
+        if num == 1:
+            key = bytes(val).decode()
+        elif num == 2:
+            values = _decode_list_value(val)
+    return key, values
+
+
+# ---------------------------------------------------------------------------
+# VariantCall / Variant (nucleus variants.proto:52-170)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class VariantCall:
+    call_set_name: str = ""
+    genotype: List[int] = dataclasses.field(default_factory=list)
+    genotype_likelihood: List[float] = dataclasses.field(default_factory=list)
+    is_phased: bool = False
+    phaseset: str = ""
+    info: Dict[str, List] = dataclasses.field(default_factory=dict)
+
+    def encode(self) -> bytes:
+        out = []
+        if self.info:
+            out.append(encode_info_map(2, self.info))
+        if self.phaseset:
+            out.append(pw.field_string(5, self.phaseset))
+        if self.genotype_likelihood:
+            out.append(pw.packed_doubles(6, self.genotype_likelihood))
+        if self.genotype:
+            out.append(pw.packed_varints(7, [g & ((1 << 64) - 1) if g < 0 else g
+                                             for g in self.genotype]))
+        if self.call_set_name:
+            out.append(pw.field_string(9, self.call_set_name))
+        if self.is_phased:
+            out.append(pw.field_bool(10, self.is_phased))
+        return b"".join(out)
+
+    @staticmethod
+    def decode(buf) -> "VariantCall":
+        call = VariantCall()
+        for num, wt, val in pw.iter_fields(buf):
+            if num == 2:
+                k, v = decode_info_entry(val)
+                call.info[k] = v
+            elif num == 5:
+                call.phaseset = bytes(val).decode()
+            elif num == 6:
+                if wt == pw.WIRETYPE_LEN:
+                    call.genotype_likelihood.extend(
+                        pw.decode_packed_doubles(val))
+                else:
+                    call.genotype_likelihood.append(
+                        pw.decode_fixed64_double(val))
+            elif num == 7:
+                if wt == pw.WIRETYPE_LEN:
+                    call.genotype.extend(
+                        _varint32(v) for v in pw.decode_packed_varints(val))
+                else:
+                    call.genotype.append(_varint32(val))
+            elif num == 9:
+                call.call_set_name = bytes(val).decode()
+            elif num == 10:
+                call.is_phased = bool(val)
+        return call
+
+
+def _varint32(v: int) -> int:
+    """Interpret an unsigned varint as int32 (handles -1 genotypes)."""
+    v &= 0xFFFFFFFFFFFFFFFF
+    if v >= 1 << 63:
+        v -= 1 << 64
+    if -(1 << 31) <= v < (1 << 31):
+        return int(v)
+    return int(v - (1 << 32)) if v >= (1 << 31) else int(v)
+
+
+@dataclasses.dataclass
+class Variant:
+    """A variant record (nucleus variants.proto:52-112)."""
+
+    reference_name: str = ""
+    start: int = 0
+    end: int = 0
+    reference_bases: str = ""
+    alternate_bases: List[str] = dataclasses.field(default_factory=list)
+    names: List[str] = dataclasses.field(default_factory=list)
+    filter: List[str] = dataclasses.field(default_factory=list)
+    quality: float = 0.0
+    info: Dict[str, List] = dataclasses.field(default_factory=dict)
+    calls: List[VariantCall] = dataclasses.field(default_factory=list)
+    id: str = ""
+
+    def encode(self) -> bytes:
+        out = []
+        if self.id:
+            out.append(pw.field_string(2, self.id))
+        for n in self.names:
+            out.append(pw.field_string(3, n))
+        if self.reference_bases:
+            out.append(pw.field_string(6, self.reference_bases))
+        for a in self.alternate_bases:
+            out.append(pw.field_string(7, a))
+        if self.quality:
+            out.append(pw.field_double(8, self.quality))
+        for f in self.filter:
+            out.append(pw.field_string(9, f))
+        if self.info:
+            out.append(encode_info_map(10, self.info))
+        for c in self.calls:
+            out.append(pw.field_message(11, c.encode()))
+        if self.end:
+            out.append(pw.field_varint(13, self.end))
+        if self.reference_name:
+            out.append(pw.field_string(14, self.reference_name))
+        if self.start:
+            out.append(pw.field_varint(16, self.start))
+        return b"".join(out)
+
+    @staticmethod
+    def decode(buf) -> "Variant":
+        v = Variant()
+        for num, wt, val in pw.iter_fields(buf):
+            if num == 2:
+                v.id = bytes(val).decode()
+            elif num == 3:
+                v.names.append(bytes(val).decode())
+            elif num == 6:
+                v.reference_bases = bytes(val).decode()
+            elif num == 7:
+                v.alternate_bases.append(bytes(val).decode())
+            elif num == 8:
+                v.quality = pw.decode_fixed64_double(val)
+            elif num == 9:
+                v.filter.append(bytes(val).decode())
+            elif num == 10:
+                k, vals = decode_info_entry(val)
+                v.info[k] = vals
+            elif num == 11:
+                v.calls.append(VariantCall.decode(val))
+            elif num == 13:
+                v.end = pw.varint_to_signed64(val)
+            elif num == 14:
+                v.reference_name = bytes(val).decode()
+            elif num == 16:
+                v.start = pw.varint_to_signed64(val)
+        return v
+
+
+# ---------------------------------------------------------------------------
+# CallVariantsOutput (deepvariant.proto:363-401)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CvoDebugInfo:
+    """CallVariantsOutput.DebugInfo (deepvariant.proto:376-399),
+    emitted under --include_debug_info."""
+
+    predicted_label: int = 0
+    has_insertion: bool = False
+    has_deletion: bool = False
+    is_snp: bool = False
+    true_label: int = 0
+    logits: List[float] = dataclasses.field(default_factory=list)
+
+    def encode(self) -> bytes:
+        out = []
+        if self.predicted_label:
+            out.append(pw.field_varint(1, self.predicted_label))
+        if self.has_insertion:
+            out.append(pw.field_varint(2, 1))
+        if self.has_deletion:
+            out.append(pw.field_varint(3, 1))
+        if self.is_snp:
+            out.append(pw.field_varint(4, 1))
+        if self.true_label:
+            out.append(pw.field_varint(5, self.true_label))
+        if self.logits:
+            out.append(pw.packed_doubles(6, self.logits))
+        return b"".join(out)
+
+    @staticmethod
+    def decode(buf) -> "CvoDebugInfo":
+        d = CvoDebugInfo()
+        for num, wt, val in pw.iter_fields(buf):
+            if num == 1:
+                d.predicted_label = val
+            elif num == 2:
+                d.has_insertion = bool(val)
+            elif num == 3:
+                d.has_deletion = bool(val)
+            elif num == 4:
+                d.is_snp = bool(val)
+            elif num == 5:
+                d.true_label = val
+            elif num == 6:
+                if wt == pw.WIRETYPE_LEN:
+                    d.logits.extend(pw.decode_packed_doubles(val))
+                else:
+                    d.logits.append(pw.decode_fixed64_double(val))
+        return d
+
+
+@dataclasses.dataclass
+class CallVariantsOutput:
+    variant: Variant
+    alt_allele_indices: List[int]
+    genotype_probabilities: List[float]
+    debug_info: Optional[CvoDebugInfo] = None
+
+    def encode(self) -> bytes:
+        out = [pw.field_message(1, self.variant.encode())]
+        out.append(
+            pw.field_message(2, pw.packed_varints(1, self.alt_allele_indices))
+            if self.alt_allele_indices
+            else pw.field_message(2, b"")
+        )
+        if self.genotype_probabilities:
+            out.append(pw.packed_doubles(3, self.genotype_probabilities))
+        if self.debug_info is not None:
+            out.append(pw.field_message(4, self.debug_info.encode()))
+        return b"".join(out)
+
+    @staticmethod
+    def decode(buf) -> "CallVariantsOutput":
+        variant = Variant()
+        indices: List[int] = []
+        probs: List[float] = []
+        debug = None
+        for num, wt, val in pw.iter_fields(buf):
+            if num == 1:
+                variant = Variant.decode(val)
+            elif num == 2:
+                for inum, iwt, ival in pw.iter_fields(val):
+                    if inum == 1:
+                        if iwt == pw.WIRETYPE_LEN:
+                            indices.extend(pw.decode_packed_varints(ival))
+                        else:
+                            indices.append(ival)
+            elif num == 3:
+                if wt == pw.WIRETYPE_LEN:
+                    probs.extend(pw.decode_packed_doubles(val))
+                else:
+                    probs.append(pw.decode_fixed64_double(val))
+            elif num == 4:
+                debug = CvoDebugInfo.decode(val)
+        return CallVariantsOutput(variant, indices, probs, debug)

@@ -1,0 +1,439 @@
+"""Inception-v3 genotype classifier in PyTorch.
+
+Counterpart of `deepvariant_tpu/models/inception_v3.py` (the reference's
+keras_modeling.py:246-307: an InceptionV3 backbone with pooling='avg', a
+0.2 dropout and a 3-class softmax head). Same branch widths, batch norm
+without scale and with epsilon 1e-3, and the same parameter names, so
+`from_flax_variables` and `to_flax_variables` move weights between the
+two packages tensor by tensor.
+
+Public functions keep the JAX layout: the model takes NHWC input and
+returns (B, 3) float32 probabilities. Inside, the activations are NCHW
+tensors in channels_last memory, which is the NHWC layout cuDNN's fast
+convolutions read. Convolutions go to cuDNN through `F.conv2d`, as the
+JAX package left them to XLA.
+
+On the card the convolutions run in bfloat16 (`prepare_for_inference`)
+while batch-norm statistics and the classifier head stay float32, as in
+the JAX model. This module is inference only; training waits for a
+later slice of the port.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from deepvariant_tpu_torch.device import resolve_device
+
+NUM_CLASSES = 3  # {hom-ref, het, hom-alt} (reference dv_constants.py:77)
+BN_EPSILON = 1e-3
+
+
+class BatchNorm(nn.Module):
+    """Inference batch norm with `use_scale=False`: a learned bias and the
+    running mean and variance (flax names `bias`, `mean`, `var`)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x):
+        return F.batch_norm(x, self.mean, self.var, None, self.bias,
+                            False, 0.0, BN_EPSILON)
+
+
+class ConvBN(nn.Module):
+    """Conv2D(use_bias=False) + BatchNorm(scale=False, eps=1e-3) + ReLU, or
+    Conv2D with bias + ReLU once batch norm is folded into the conv."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel: Tuple[int, int], stride: int = 1,
+                 padding: str = "SAME", fold_bn: bool = False):
+        super().__init__()
+        if padding == "SAME":
+            # Every SAME conv of the network has stride 1 and odd kernels,
+            # where SAME pads symmetrically.
+            if stride != 1 or kernel[0] % 2 == 0 or kernel[1] % 2 == 0:
+                raise ValueError("SAME padding needs stride 1, odd kernels")
+            pad = (kernel[0] // 2, kernel[1] // 2)
+        elif padding == "VALID":
+            pad = (0, 0)
+        else:
+            raise ValueError(f"unknown padding {padding!r}")
+        self.conv = nn.Conv2d(in_channels, features, kernel, stride, pad,
+                              bias=fold_bn)
+        self.bn = None if fold_bn else BatchNorm(features)
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return F.relu(x)
+
+
+def _avg_pool_same(x):
+    # flax avg_pool counts the padded zeros, as count_include_pad does.
+    return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=True)
+
+
+def _max_pool_v(x):
+    return F.max_pool2d(x, 3, stride=2)
+
+
+class InceptionA(nn.Module):
+    """35x35-grid block (keras mixed0/1/2): 1x1, 5x5, double-3x3, pool."""
+
+    def __init__(self, in_channels: int, pool_features: int,
+                 fold_bn: bool = False):
+        super().__init__()
+        c, f = in_channels, fold_bn
+        self.b1x1 = ConvBN(c, 64, (1, 1), fold_bn=f)
+        self.b5x5_1 = ConvBN(c, 48, (1, 1), fold_bn=f)
+        self.b5x5_2 = ConvBN(48, 64, (5, 5), fold_bn=f)
+        self.b3x3dbl_1 = ConvBN(c, 64, (1, 1), fold_bn=f)
+        self.b3x3dbl_2 = ConvBN(64, 96, (3, 3), fold_bn=f)
+        self.b3x3dbl_3 = ConvBN(96, 96, (3, 3), fold_bn=f)
+        self.bpool = ConvBN(c, pool_features, (1, 1), fold_bn=f)
+        self.out_channels = 64 + 64 + 96 + pool_features
+
+    def forward(self, x):
+        b1 = self.b1x1(x)
+        b5 = self.b5x5_2(self.b5x5_1(x))
+        b3 = self.b3x3dbl_3(self.b3x3dbl_2(self.b3x3dbl_1(x)))
+        bp = self.bpool(_avg_pool_same(x))
+        return torch.cat([b1, b5, b3, bp], dim=1)
+
+
+class ReductionA(nn.Module):
+    """Grid reduction 35->17 (keras mixed3)."""
+
+    def __init__(self, in_channels: int, fold_bn: bool = False):
+        super().__init__()
+        c, f = in_channels, fold_bn
+        self.b3x3 = ConvBN(c, 384, (3, 3), 2, "VALID", fold_bn=f)
+        self.b3x3dbl_1 = ConvBN(c, 64, (1, 1), fold_bn=f)
+        self.b3x3dbl_2 = ConvBN(64, 96, (3, 3), fold_bn=f)
+        self.b3x3dbl_3 = ConvBN(96, 96, (3, 3), 2, "VALID", fold_bn=f)
+        self.out_channels = 384 + 96 + c
+
+    def forward(self, x):
+        b3 = self.b3x3(x)
+        bd = self.b3x3dbl_3(self.b3x3dbl_2(self.b3x3dbl_1(x)))
+        return torch.cat([b3, bd, _max_pool_v(x)], dim=1)
+
+
+class InceptionB(nn.Module):
+    """17x17-grid block with factorized 7x7 convs (keras mixed4-7)."""
+
+    def __init__(self, in_channels: int, c7: int, fold_bn: bool = False):
+        super().__init__()
+        c, f = in_channels, fold_bn
+        self.b1x1 = ConvBN(c, 192, (1, 1), fold_bn=f)
+        self.b7x7_1 = ConvBN(c, c7, (1, 1), fold_bn=f)
+        self.b7x7_2 = ConvBN(c7, c7, (1, 7), fold_bn=f)
+        self.b7x7_3 = ConvBN(c7, 192, (7, 1), fold_bn=f)
+        self.b7x7dbl_1 = ConvBN(c, c7, (1, 1), fold_bn=f)
+        self.b7x7dbl_2 = ConvBN(c7, c7, (7, 1), fold_bn=f)
+        self.b7x7dbl_3 = ConvBN(c7, c7, (1, 7), fold_bn=f)
+        self.b7x7dbl_4 = ConvBN(c7, c7, (7, 1), fold_bn=f)
+        self.b7x7dbl_5 = ConvBN(c7, 192, (1, 7), fold_bn=f)
+        self.bpool = ConvBN(c, 192, (1, 1), fold_bn=f)
+        self.out_channels = 4 * 192
+
+    def forward(self, x):
+        b1 = self.b1x1(x)
+        b7 = self.b7x7_3(self.b7x7_2(self.b7x7_1(x)))
+        bd = self.b7x7dbl_1(x)
+        bd = self.b7x7dbl_3(self.b7x7dbl_2(bd))
+        bd = self.b7x7dbl_5(self.b7x7dbl_4(bd))
+        bp = self.bpool(_avg_pool_same(x))
+        return torch.cat([b1, b7, bd, bp], dim=1)
+
+
+class ReductionB(nn.Module):
+    """Grid reduction 17->8 (keras mixed8)."""
+
+    def __init__(self, in_channels: int, fold_bn: bool = False):
+        super().__init__()
+        c, f = in_channels, fold_bn
+        self.b3x3_1 = ConvBN(c, 192, (1, 1), fold_bn=f)
+        self.b3x3_2 = ConvBN(192, 320, (3, 3), 2, "VALID", fold_bn=f)
+        self.b7x7x3_1 = ConvBN(c, 192, (1, 1), fold_bn=f)
+        self.b7x7x3_2 = ConvBN(192, 192, (1, 7), fold_bn=f)
+        self.b7x7x3_3 = ConvBN(192, 192, (7, 1), fold_bn=f)
+        self.b7x7x3_4 = ConvBN(192, 192, (3, 3), 2, "VALID", fold_bn=f)
+        self.out_channels = 320 + 192 + c
+
+    def forward(self, x):
+        b3 = self.b3x3_2(self.b3x3_1(x))
+        b7 = self.b7x7x3_2(self.b7x7x3_1(x))
+        b7 = self.b7x7x3_4(self.b7x7x3_3(b7))
+        return torch.cat([b3, b7, _max_pool_v(x)], dim=1)
+
+
+class InceptionC(nn.Module):
+    """8x8-grid block with expanded filter banks (keras mixed9/10)."""
+
+    def __init__(self, in_channels: int, fold_bn: bool = False):
+        super().__init__()
+        c, f = in_channels, fold_bn
+        self.b1x1 = ConvBN(c, 320, (1, 1), fold_bn=f)
+        self.b3x3_1 = ConvBN(c, 384, (1, 1), fold_bn=f)
+        self.b3x3_2a = ConvBN(384, 384, (1, 3), fold_bn=f)
+        self.b3x3_2b = ConvBN(384, 384, (3, 1), fold_bn=f)
+        self.b3x3dbl_1 = ConvBN(c, 448, (1, 1), fold_bn=f)
+        self.b3x3dbl_2 = ConvBN(448, 384, (3, 3), fold_bn=f)
+        self.b3x3dbl_3a = ConvBN(384, 384, (1, 3), fold_bn=f)
+        self.b3x3dbl_3b = ConvBN(384, 384, (3, 1), fold_bn=f)
+        self.bpool = ConvBN(c, 192, (1, 1), fold_bn=f)
+        self.out_channels = 320 + 768 + 768 + 192
+
+    def forward(self, x):
+        b1 = self.b1x1(x)
+        b3 = self.b3x3_1(x)
+        b3 = torch.cat([self.b3x3_2a(b3), self.b3x3_2b(b3)], dim=1)
+        bd = self.b3x3dbl_2(self.b3x3dbl_1(x))
+        bd = torch.cat([self.b3x3dbl_3a(bd), self.b3x3dbl_3b(bd)], dim=1)
+        bp = self.bpool(_avg_pool_same(x))
+        return torch.cat([b1, b3, bd, bp], dim=1)
+
+
+class InceptionV3(nn.Module):
+    """InceptionV3 backbone + avg-pool + 3-class head (the training-time
+    0.2 dropout is the identity here).
+
+    `forward` takes (B, H, W, C) NHWC input, normalized as
+    `normalize_pileup` does, and returns (B, 3) float32 probabilities;
+    `logits` returns the head's float32 logits."""
+
+    def __init__(self, num_channels: int, num_classes: int = NUM_CLASSES,
+                 fold_bn: bool = False):
+        super().__init__()
+        self.num_channels = num_channels
+        self.num_classes = num_classes
+        self.fold_bn = fold_bn
+        f = fold_bn
+        self.stem1 = ConvBN(num_channels, 32, (3, 3), 2, "VALID", fold_bn=f)
+        self.stem2 = ConvBN(32, 32, (3, 3), 1, "VALID", fold_bn=f)
+        self.stem3 = ConvBN(32, 64, (3, 3), fold_bn=f)
+        self.stem4 = ConvBN(64, 80, (1, 1), 1, "VALID", fold_bn=f)
+        self.stem5 = ConvBN(80, 192, (3, 3), 1, "VALID", fold_bn=f)
+        blocks = []
+        c = 192
+        for name, make in [
+            ("mixed0", lambda c: InceptionA(c, 32, f)),
+            ("mixed1", lambda c: InceptionA(c, 64, f)),
+            ("mixed2", lambda c: InceptionA(c, 64, f)),
+            ("mixed3", lambda c: ReductionA(c, f)),
+            ("mixed4", lambda c: InceptionB(c, 128, f)),
+            ("mixed5", lambda c: InceptionB(c, 160, f)),
+            ("mixed6", lambda c: InceptionB(c, 160, f)),
+            ("mixed7", lambda c: InceptionB(c, 192, f)),
+            ("mixed8", lambda c: ReductionB(c, f)),
+            ("mixed9", lambda c: InceptionC(c, f)),
+            ("mixed10", lambda c: InceptionC(c, f)),
+        ]:
+            block = make(c)
+            self.add_module(name, block)
+            blocks.append(block)
+            c = block.out_channels
+        self._blocks = blocks
+        self.classification = nn.Linear(c, num_classes)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.stem1.conv.weight.dtype
+
+    def backbone(self, x):
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+        x = self.stem3(self.stem2(self.stem1(x)))
+        x = _max_pool_v(x)
+        x = self.stem5(self.stem4(x))
+        x = _max_pool_v(x)
+        for block in self._blocks:
+            x = block(x)
+        # pooling='avg' (keras_modeling.py:252-257). The JAX model takes
+        # the mean in the compute dtype, so the pooled features round to
+        # it before the float32 head.
+        pooled = x.mean(dim=(2, 3), dtype=torch.float32)
+        return pooled.to(x.dtype).to(torch.float32)
+
+    def logits(self, x):
+        return self.classification(self.backbone(x))
+
+    def forward(self, x):
+        return torch.softmax(self.logits(x), dim=-1)
+
+
+def normalize_pileup(images_uint8: torch.Tensor,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """uint8 pileup -> model input: (x - 128) / 128 in `dtype`; exact in
+    bfloat16 and float32 alike (reference dv_utils.py:356-380)."""
+    return (images_uint8.to(dtype) - 128.0) / 128.0
+
+
+def _lecun_normal_(weight: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> None:
+    """flax's default kernel init: truncated normal at +-2 std with
+    variance 1/fan_in after truncation."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
+def create_model(
+    num_channels: int,
+    height: int = 100,
+    width: int = 221,
+    dtype: torch.dtype = torch.bfloat16,
+    device: Union[str, torch.device] = "cuda",
+    generator: Optional[torch.Generator] = None,
+) -> InceptionV3:
+    """Build the model for (height, width, num_channels) pileups with
+    flax's default initialisation (lecun-normal kernels, zero biases,
+    BN mean 0 and variance 1), drawn from `generator` (seed 0 when none
+    is given), ready for inference on `device` in `dtype`."""
+    if height < 75 or width < 75:
+        raise ValueError(f"InceptionV3 needs at least 75x75 input, got "
+                         f"{height}x{width}")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = InceptionV3(num_channels)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Conv2d, nn.Linear)):
+                fan_in = module.weight[0].numel()
+                _lecun_normal_(module.weight, fan_in, generator)
+                if module.bias is not None:
+                    module.bias.zero_()
+    return prepare_for_inference(model, device, dtype)
+
+
+def prepare_for_inference(model: InceptionV3,
+                          device: Union[str, torch.device],
+                          dtype: torch.dtype) -> InceptionV3:
+    """A copy of `model` in eval mode on `device`: conv weights in
+    `dtype` and channels_last, batch norm and head in float32."""
+    model = copy.deepcopy(model).eval().to(resolve_device(device))
+    for module in model.modules():
+        if isinstance(module, nn.Conv2d):
+            module.to(dtype=dtype, memory_format=torch.channels_last)
+    return model
+
+
+def fold_batch_norm(model: InceptionV3) -> InceptionV3:
+    """Fold every ConvBN's batch norm into its conv (inference only).
+
+    With scale=False batch norm, y = (conv(x) - mean) * s + beta where
+    s = 1/sqrt(var + eps): the folded conv has weight * s per output
+    channel and bias beta - mean * s, computed in float32 as the JAX
+    package's `fold_batch_norm` does; fold float32 weights and cast
+    afterwards to match it. Returns a new model on the same device and
+    with the same conv dtype."""
+    if model.fold_bn:
+        return model
+    conv_dtype = model.compute_dtype
+    device = model.stem1.conv.weight.device
+    def f32(t):
+        return t.detach().cpu().float().numpy()
+
+    state = {}
+    for name, module in model.named_modules():
+        if isinstance(module, ConvBN):
+            # numpy, as in the JAX package: torch's 1 / sqrt(x) on the
+            # CPU does not always round as numpy's does.
+            s = 1.0 / np.sqrt(f32(module.bn.var) + BN_EPSILON)
+            w = f32(module.conv.weight) * s[:, None, None, None]
+            state[f"{name}.conv.weight"] = torch.from_numpy(w)
+            state[f"{name}.conv.bias"] = torch.from_numpy(
+                f32(module.bn.bias) - f32(module.bn.mean) * s)
+    state["classification.weight"] = model.classification.weight.detach()
+    state["classification.bias"] = model.classification.bias.detach()
+    folded = InceptionV3(model.num_channels, model.num_classes,
+                         fold_bn=True)
+    folded.load_state_dict({k: v.float().cpu() for k, v in state.items()})
+    return prepare_for_inference(folded, device, conv_dtype)
+
+
+def pad_stem_input_channels(model: InceptionV3,
+                            to_channels: int) -> InceptionV3:
+    """Zero-pad the stem conv's input channels (the caller pads the images
+    to match). Exact: the padded weight slice is zero, so the extra
+    channels never contribute. Returns a new model."""
+    c = model.num_channels
+    if to_channels < c:
+        raise ValueError(f"cannot shrink {c} -> {to_channels}")
+    out = copy.deepcopy(model)
+    old = model.stem1.conv
+    new = nn.Conv2d(to_channels, old.out_channels, old.kernel_size,
+                    old.stride, old.padding, bias=old.bias is not None)
+    new = new.to(device=old.weight.device, dtype=old.weight.dtype,
+                 memory_format=torch.channels_last)
+    with torch.no_grad():
+        new.weight.zero_()
+        new.weight[:, :c] = old.weight
+        if old.bias is not None:
+            new.bias.copy_(old.bias)
+    out.stem1.conv = new
+    out.num_channels = to_channels
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Weights from and to the JAX package's {params, batch_stats} tree
+# ---------------------------------------------------------------------------
+
+def _flatten(tree: dict, prefix: Tuple[str, ...] = ()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def from_flax_variables(variables: Dict[str, dict]) -> Dict[str, torch.Tensor]:
+    """The JAX package's {params, batch_stats} tree of arrays -> a state
+    dict for `InceptionV3`: conv kernels HWIO -> OIHW, the Dense kernel
+    transposed, BN bias/mean/var under the same names."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise ValueError(f"unexpected variable collections {sorted(unknown)}")
+    state = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(collection, {})):
+            arr = np.asarray(value)
+            leaf = path[-1]
+            if leaf == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                leaf = "weight"
+            key = ".".join(path[:-1] + (leaf,))
+            state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return state
+
+
+def to_flax_variables(model: nn.Module) -> Dict[str, dict]:
+    """`InceptionV3` weights -> the JAX package's {params, batch_stats}
+    tree of float32 numpy arrays (batch_stats omitted once folded)."""
+    variables: Dict[str, dict] = {}
+    for name, tensor in model.state_dict().items():
+        path = name.split(".")
+        leaf = path[-1]
+        arr = tensor.detach().cpu().float().numpy()
+        if leaf == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            leaf = "kernel"
+        collection = "batch_stats" if leaf in ("mean", "var") else "params"
+        node = variables.setdefault(collection, {})
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return variables
+

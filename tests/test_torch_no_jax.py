@@ -1,0 +1,76 @@
+"""The PyTorch port (deepvariant_tpu_torch) and chip_smoke.py import
+nothing of JAX, flax, optax or the JAX package."""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepvariant_tpu")
+
+_SCRIPT = r"""
+import importlib, os, pkgutil, sys, tempfile
+import numpy as np
+import deepvariant_tpu_torch
+for info in pkgutil.walk_packages(deepvariant_tpu_torch.__path__,
+                                  "deepvariant_tpu_torch."):
+    importlib.import_module(info.name)
+from deepvariant_tpu_torch.core.types import Variant
+from deepvariant_tpu_torch.io import examples
+from deepvariant_tpu_torch.io.tfrecord import TFRecordWriter
+from deepvariant_tpu_torch.make_examples.pileup import WGS_CHANNELS
+from deepvariant_tpu_torch.scripts import call_variants as cli
+import torch
+torch.set_num_threads(2)
+d = tempfile.mkdtemp()
+path = os.path.join(d, "ex.tfrecord")
+rng = np.random.RandomState(0)
+with TFRecordWriter(path) as w:
+    for i in range(2):
+        v = Variant(reference_name="chr1", start=10 + i, end=11 + i,
+                    reference_bases="A", alternate_bases=["C"])
+        w.write(examples.make_example(
+            v, rng.randint(0, 255, (100, 221, 7), np.uint8), [0],
+            f"chr1:{11 + i}-{12 + i}"))
+examples.write_example_info(path, (100, 221, 7), WGS_CHANNELS)
+rc = cli.main(["--examples", path, "--outfile", os.path.join(d, "cvo.gz"),
+               "--allow_uninitialized_model", "--device", "cpu",
+               "--batch_size", "2"])
+assert rc == 0, rc
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in %r)
+assert not bad, bad
+print("clean")
+""" % (FORBIDDEN,)
+
+
+def test_port_runs_without_importing_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "clean" in out.stdout
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_source_file_names_a_forbidden_module():
+    files = glob.glob(os.path.join(REPO, "deepvariant_tpu_torch", "**",
+                                   "*.py"), recursive=True)
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 15
+    for path in files:
+        for name in _imports(path):
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
