@@ -85,14 +85,16 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
 
 def random_plans(n: int, seed: int):
     """n WGS plan dicts with invalid rows, N bases, q up to 255, mapq
-    above the cap, support codes 0..2 and tlen negative and huge."""
+    above the cap, support codes in and outside 0..2, and tlen negative
+    and huge, -2**31 included."""
     rng = np.random.RandomState(seed)
     alphabet = np.frombuffer(b"ACGTN", np.uint8)
     bases = alphabet[rng.randint(0, 5, (n, ROWS, WIDTH))]
     bases[rng.rand(n, ROWS, WIDTH) < 0.3] = 0
     tlen = rng.randint(-5000, 5000, (n, ROWS)).astype(np.int32)
-    tlen[:, 0] = -2**31 + 1
-    tlen[:, 1] = 2**31 - 1
+    tlen[:, :3] = [-2**31, -2**31 + 1, 2**31 - 1]
+    support = rng.randint(0, 3, (n, ROWS)).astype(np.int8)
+    support[:, 3:8] = [-1, -3, -128, 3, 127]
     stacked = {
         "bases": bases,
         "quals": rng.randint(0, 256, (n, ROWS, WIDTH)).astype(np.uint8),
@@ -101,7 +103,7 @@ def random_plans(n: int, seed: int):
         "hp": rng.randint(0, 3, (n, ROWS)).astype(np.int8),
         "tlen": tlen,
         "supp": rng.rand(n, ROWS) < 0.1,
-        "support": rng.randint(0, 3, (n, ROWS)).astype(np.int8),
+        "support": support,
         "af": np.zeros((n, ROWS), np.uint8),
         "row_valid": rng.rand(n, ROWS) < 0.85,
         "ref_window": alphabet[rng.randint(0, 5, (n, WIDTH))],

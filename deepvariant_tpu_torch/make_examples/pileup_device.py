@@ -34,6 +34,12 @@ _KERNEL_FIXED = ("base_color_offset_a_and_g", "base_color_offset_t_and_c",
                  "reference_mismatching_read_alpha")
 
 
+def _saturate_uint8(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> uint8 as XLA converts: truncate, saturate at 0 and 255
+    (torch's own cast wraps out-of-range values)."""
+    return torch.clamp(x, 0.0, 255.0).to(torch.uint8)
+
+
 def make_longread_encode_fn(options: PileupOptions) -> "WgsPlanPainter":
     """The WGS painter over pre-gathered plan rows (see WgsPlanPainter)."""
     return WgsPlanPainter(options)
@@ -116,11 +122,12 @@ class WgsPlanPainter:
         pileup_jax.py:563-633 does (uint8 colors, truncated)."""
         cap = float(self.options.mapping_quality_cap)
         covered = (bases != 0) & row_valid[:, :, None]
-        mapq_color = (MAX_PIXEL_FLOAT * (
-            torch.clamp(mapq.to(torch.float32), max=cap) / cap
-        )).to(torch.uint8)
+        mapq_color = _saturate_uint8(MAX_PIXEL_FLOAT * (
+            torch.clamp(mapq.to(torch.float32), max=cap) / cap))
+        # abs wraps in int32 as JAX's does: abs(-2**31) stays -2**31 and
+        # its color saturates to 0.
         tlen_f = torch.clamp(torch.abs(tlen), max=1000).to(torch.float32)
-        tlen_color = (MAX_PIXEL_FLOAT * tlen_f / 1000.0).to(torch.uint8)
+        tlen_color = _saturate_uint8(MAX_PIXEL_FLOAT * tlen_f / 1000.0)
         colors = [mapq_color, self._lut("strand", rev),
                   self._lut("support", support), tlen_color]
         return (bases.contiguous(), quals.contiguous(), covered.contiguous(),

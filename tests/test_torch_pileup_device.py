@@ -46,8 +46,10 @@ def test_constants_match_jax():
 @pytest.mark.parametrize("seed,n", [(0, 3), (1, 5)])
 def test_wgs_painter_bit_exact_vs_jax(seed, n):
     plans = random_plans(n, seed)
-    plans["tlen"][0, :4] = [-2**31 + 1, 2**31 - 1, -1000, 1000]
+    plans["tlen"][0, :5] = [-2**31, -2**31 + 1, 2**31 - 1, -1000, 1000]
     plans["mapq"][0, :3] = [60, 61, 255]
+    plans["support"][1, :5] = [-1, -3, -128, 3, 127]
+    plans["row_valid"][:2, :5] = True
     want = jax_images(plans, jax_pileup.PileupOptions())
     encode = make_longread_encode_fn(pileup.PileupOptions())
     got = encode(*[torch.from_numpy(plans[k]) for k in PLAN_KEYS]).numpy()
