@@ -9,8 +9,13 @@ Run from the repository root, with one card visible:
 Phases:
   1. Build every CUDA kernel from csrc/ (one nvcc each, in parallel) and
      print the build time and the compiler's register report.
-  2. Hold each kernel against its plain PyTorch version on the card at
-     the main path's shapes (bit-exact) and time both with CUDA events.
+  2. Hold each kernel against its plain PyTorch version on the card,
+     bit-exact: both entry points of the paint kernel (rows form and
+     plan form) at the main path's shape and at two shapes whose tiles
+     start and end off row and candidate boundaries, on plans with tlen
+     -2**31 and support codes outside 0..2. Time both forms and their
+     plain versions with CUDA events, and check under torch.profiler
+     that one WgsPlanPainter call launches exactly one CUDA kernel.
   3. Staged call_variants: write synthetic 100x221x7 WGS examples and a
      seeded checkpoint with the port's own writers, run the CLI
      (`deepvariant_tpu_torch.scripts.call_variants.main`) on the card at
@@ -44,7 +49,14 @@ import time
 
 import numpy as np
 
-N_CANDIDATES, ROWS, WIDTH = 512, 95, 221
+N_CANDIDATES, ROWS, WIDTH, BAND = 512, 95, 221, 5
+# The plan form's arguments, in `paint_pileup_plan`'s order.
+PLAN_FORM_KEYS = ("bases", "quals", "mapq", "rev", "tlen", "support",
+                  "row_valid", "ref_window")
+# (N, R, band, W) of the paint checks: the main path's shape, then two
+# whose tiles cut rows and candidates at odd offsets.
+PAINT_SHAPES = ((N_CANDIDATES, ROWS, BAND, WIDTH), (3, 93, 7, WIDTH),
+                (5, ROWS, BAND, 100))
 SHAPE = (100, 221, 7)
 N_EXAMPLES = 1024
 STAGED_REPEATS = 8  # the example file is read this many times when timed
@@ -83,30 +95,58 @@ def time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def random_plans(n: int, seed: int):
+def device_ms(fn, reps: int = 50, repeats: int = 3) -> float:
+    """Device time per call of `fn` (CUDA events), the median of
+    `repeats` runs of `reps` calls queued behind a spin kernel, so that
+    the card runs them back to back whatever the host's launch cost."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start_s = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - start_s
+    times = []
+    for _ in range(repeats):
+        # Long enough for the host to queue all `reps` calls (2 GHz bound
+        # on the SM clock), at most a second.
+        torch.cuda._sleep(int(min(2 * reps * host_s, 1.0) * 2e9))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def random_plans(n: int, seed: int, rows: int = ROWS, width: int = WIDTH):
     """n WGS plan dicts with invalid rows, N bases, q up to 255, mapq
     above the cap, support codes in and outside 0..2, and tlen negative
     and huge, -2**31 included."""
     rng = np.random.RandomState(seed)
     alphabet = np.frombuffer(b"ACGTN", np.uint8)
-    bases = alphabet[rng.randint(0, 5, (n, ROWS, WIDTH))]
-    bases[rng.rand(n, ROWS, WIDTH) < 0.3] = 0
-    tlen = rng.randint(-5000, 5000, (n, ROWS)).astype(np.int32)
+    bases = alphabet[rng.randint(0, 5, (n, rows, width))]
+    bases[rng.rand(n, rows, width) < 0.3] = 0
+    tlen = rng.randint(-5000, 5000, (n, rows)).astype(np.int32)
     tlen[:, :3] = [-2**31, -2**31 + 1, 2**31 - 1]
-    support = rng.randint(0, 3, (n, ROWS)).astype(np.int8)
-    support[:, 3:8] = [-1, -3, -128, 3, 127]
+    support = rng.randint(0, 3, (n, rows)).astype(np.int8)
+    support[:, 3:9] = [-1, -2, -3, -128, 3, 127]
     stacked = {
         "bases": bases,
-        "quals": rng.randint(0, 256, (n, ROWS, WIDTH)).astype(np.uint8),
-        "mapq": rng.randint(0, 256, (n, ROWS)).astype(np.uint8),
-        "rev": rng.rand(n, ROWS) < 0.5,
-        "hp": rng.randint(0, 3, (n, ROWS)).astype(np.int8),
+        "quals": rng.randint(0, 256, (n, rows, width)).astype(np.uint8),
+        "mapq": rng.randint(0, 256, (n, rows)).astype(np.uint8),
+        "rev": rng.rand(n, rows) < 0.5,
+        "hp": rng.randint(0, 3, (n, rows)).astype(np.int8),
         "tlen": tlen,
-        "supp": rng.rand(n, ROWS) < 0.1,
+        "supp": rng.rand(n, rows) < 0.1,
         "support": support,
-        "af": np.zeros((n, ROWS), np.uint8),
-        "row_valid": rng.rand(n, ROWS) < 0.85,
-        "ref_window": alphabet[rng.randint(0, 5, (n, WIDTH))],
+        "af": np.zeros((n, rows), np.uint8),
+        "row_valid": rng.rand(n, rows) < 0.85,
+        "ref_window": alphabet[rng.randint(0, 5, (n, width))],
     }
     return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
 
@@ -124,9 +164,41 @@ def phase_build() -> float:
     return seconds
 
 
+def n_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(tensors, out) -> tuple:
+    """(bound ms, bound_by): each input read once and the output written
+    once at the card's memory rate, against the paint's float32
+    operations at its peak."""
+    bytes_ms = (n_bytes(tensors) + n_bytes([out])) / H100_BYTES_PER_S * 1e3
+    pixels = out.numel() // out.shape[-1]
+    ops_ms = pixels * PAINT_OPS_PER_PIXEL / H100_FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def kernels_launched(fn) -> list:
+    """Names of the device activities (kernels, copies, fills) of one
+    call of `fn`, traced by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def phase_paint_kernel(device) -> dict:
-    """The paint kernel against its plain version at the main path's
-    shapes, and the timings of both."""
+    """Both forms of the paint kernel against their plain versions at
+    PAINT_SHAPES, their timings at the main path's shape, and the
+    painter's one launch."""
     import torch
 
     from deepvariant_tpu_torch.calling.plan_predictor import PLAN_KEYS
@@ -136,29 +208,67 @@ def phase_paint_kernel(device) -> dict:
     )
     from deepvariant_tpu_torch.ops import pileup_paint as pp
 
-    plans = random_plans(N_CANDIDATES, SEED)
-    t = {k: torch.from_numpy(np.stack([p[k] for p in plans])).to(device)
-         for k in PLAN_KEYS}
-    args = WgsPlanPainter(PileupOptions()).paint_args(
-        t["bases"], t["quals"], t["mapq"], t["rev"], t["tlen"],
-        t["support"], t["row_valid"], t["ref_window"])
-    out = pp.paint_pileup(*args)
-    plain = pp.paint_pileup_reference(*args)
-    torch.cuda.synchronize()
-    max_err = int((out.int() - plain.int()).abs().max())
-    if not torch.equal(out, plain):
-        raise AssertionError(f"paint kernel differs from its plain version "
-                             f"(max abs err {max_err})")
-    kernel_ms = time_ms(lambda: pp.paint_pileup(*args))
-    plain_ms = time_ms(lambda: pp.paint_pileup_reference(*args))
-    n_bytes = sum(a.numel() * a.element_size() for a in args) + \
-        out.numel() * out.element_size()
-    pixels = N_CANDIDATES * ROWS * WIDTH
-    bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
-    ops_ms = pixels * PAINT_OPS_PER_PIXEL / H100_FP32_FLOPS * 1e3
-    print(f"[paint] kernel == plain at {tuple(args[0].shape)}: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes} bytes)")
+    max_err, shapes = 0, []
+    for k, (n, rows, band, width) in enumerate(PAINT_SHAPES):
+        plans = random_plans(n, SEED + k, rows, width)
+        t = {key: torch.from_numpy(np.stack([p[key] for p in plans])).to(
+            device) for key in PLAN_KEYS}
+        painter = WgsPlanPainter(PileupOptions(reference_band_height=band))
+        plan_args = [t[key] for key in PLAN_FORM_KEYS]
+        rows_args = pp.rows_form_args(*plan_args, painter.colors)
+        shapes.append((painter, t, plan_args, rows_args))
+        checks = {
+            "rows": (pp.paint_pileup(*rows_args),
+                     pp.paint_pileup_reference(*rows_args)),
+            "plan": (pp.paint_pileup_plan(*plan_args, painter.colors),
+                     pp.paint_pileup_plan_reference(*plan_args,
+                                                    painter.colors)),
+        }
+        torch.cuda.synchronize()
+        for form, (out, plain) in checks.items():
+            err = int((out.int() - plain.int()).abs().max())
+            max_err = max(max_err, err)
+            if out.shape != plain.shape or not torch.equal(out, plain):
+                raise AssertionError(
+                    f"paint kernel, {form} form, differs from its plain "
+                    f"version at N={n} R={rows} band={band} W={width} "
+                    f"(max abs err {err})")
+        print(f"[paint] rows and plan forms == plain at N={n} R={rows} "
+              f"band={band} W={width}")
+
+    # The main path's shape, the first of PAINT_SHAPES, from here on.
+    painter, t, plan_args, rows_args = shapes[0]
+    encode_args = [t[key] for key in PLAN_KEYS]
+    launched = kernels_launched(lambda: painter(*encode_args))
+    print(f"[paint] one WgsPlanPainter call on the card: {launched}")
+    if len(launched) != 1 or "paint_kernel" not in launched[0]:
+        raise AssertionError(f"the painter launched {len(launched)} device "
+                             f"activities, not one paint kernel: {launched}")
+
+    numbers = {}
+    for form, kernel, plain, args in (
+            ("rows", pp.paint_pileup, pp.paint_pileup_reference, rows_args),
+            ("plan", lambda *a: pp.paint_pileup_plan(*a, painter.colors),
+             lambda *a: pp.paint_pileup_plan_reference(*a, painter.colors),
+             plan_args)):
+        out = kernel(*args)
+        bound_ms, bound_by = bound(args, out)
+        kernel_ms = device_ms(lambda: kernel(*args))
+        plain_ms = device_ms(lambda: plain(*args), reps=10)
+        numbers[form] = (kernel_ms, plain_ms, bound_ms, bound_by)
+        print(f"[paint] {form} form at {tuple(out.shape)}: kernel "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {n_bytes(args) + n_bytes([out])}"
+              f" bytes): {bound_ms / kernel_ms:.1%} of the bound")
+    kernel_ms, plain_ms, bound_ms, bound_by = numbers["rows"]
+    plan_ms, plan_plain_ms, plan_bound_ms, plan_bound_by = numbers["plan"]
+    # A yardstick, not the same function: PyTorch's fill of a tensor the
+    # size of the plan form's output, the write traffic alone.
+    image = torch.empty((N_CANDIDATES, BAND + ROWS, WIDTH, 7),
+                        dtype=torch.uint8, device=device)
+    fill_ms = device_ms(lambda: image.fill_(7))
+    print(f"[paint] fill_ of the {n_bytes([image])}-byte image: "
+          f"{fill_ms:.4f} ms")
     return {
         "name": "pileup_paint",
         "route": "cuda",
@@ -171,9 +281,14 @@ def phase_paint_kernel(device) -> dict:
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": None,
+        "plan_ms": plan_ms,
+        "plan_plain_ms": plan_plain_ms,
+        "plan_bound_ms": plan_bound_ms,
+        "plan_bound_by": plan_bound_by,
+        "image_fill_ms": fill_ms,
     }
 
 
@@ -369,6 +484,8 @@ def time_device_steps(predictor, plans, model, device) -> dict:
     with torch.inference_mode():
         steps = {
             "paint_step_ms": time_ms(lambda: predictor.encode_fn(*args)),
+            "paint_step_device_ms": device_ms(
+                lambda: predictor.encode_fn(*args)),
             "cnn_ms": time_ms(lambda: predictor.predictor.forward(images),
                               reps=10),
             "cnn_fast_graph_ms": time_ms(lambda: fast.forward(images),

@@ -11,28 +11,16 @@ import pytest
 import torch
 
 from deepvariant_tpu.make_examples import pileup as jax_pileup
-from deepvariant_tpu.make_examples.pileup_jax import (
-    make_longread_encode_fn as jax_encode_fn,
-)
 from deepvariant_tpu_torch.calling import plan_predictor
 from deepvariant_tpu_torch.make_examples import pileup
 from deepvariant_tpu_torch.make_examples.pileup_device import (
     make_longread_encode_fn,
 )
-from torch_port_util import random_plans
+from torch_port_util import edge_plans, jax_images, random_plans
 
 torch.set_num_threads(2)
 
 PLAN_KEYS = plan_predictor.PLAN_KEYS
-
-
-def jax_images(plans, options):
-    n, rows, width = plans["bases"].shape
-    alt = (np.zeros((n, 2, rows, width), np.uint8),
-           np.zeros((n, 2, rows), bool), np.zeros((n, 2, width), np.uint8),
-           np.zeros((n, 2), bool))
-    encode = jax_encode_fn(options)
-    return np.asarray(encode(*[plans[k] for k in PLAN_KEYS], *alt))
 
 
 def test_constants_match_jax():
@@ -45,11 +33,8 @@ def test_constants_match_jax():
 
 @pytest.mark.parametrize("seed,n", [(0, 3), (1, 5)])
 def test_wgs_painter_bit_exact_vs_jax(seed, n):
-    plans = random_plans(n, seed)
-    plans["tlen"][0, :5] = [-2**31, -2**31 + 1, 2**31 - 1, -1000, 1000]
+    plans = edge_plans(random_plans(n, seed))
     plans["mapq"][0, :3] = [60, 61, 255]
-    plans["support"][1, :5] = [-1, -3, -128, 3, 127]
-    plans["row_valid"][:2, :5] = True
     want = jax_images(plans, jax_pileup.PileupOptions())
     encode = make_longread_encode_fn(pileup.PileupOptions())
     got = encode(*[torch.from_numpy(plans[k]) for k in PLAN_KEYS]).numpy()

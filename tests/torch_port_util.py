@@ -57,3 +57,34 @@ def random_plans(n, seed, rows=95, width=221):
         "row_valid": rng.rand(n, rows) < 0.8,
         "ref_window": alphabet[rng.randint(0, 5, (n, width))],
     }
+
+
+def edge_plans(plans):
+    """Put the painter's edge values into stacked plans, in place: tlen
+    at the int32 edges, -2**31 included, and support codes outside
+    0..2, on valid rows. JAX wraps a negative code once and clamps: -2
+    paints as 1, and -1 as 2."""
+    n, rows = plans["tlen"].shape
+    tlen = [-2**31, -2**31 + 1, 2**31 - 1, -1000, 1000][:rows]
+    support = [-1, -2, -3, -128, 3, 127][:rows]
+    plans["tlen"][0, :len(tlen)] = tlen
+    plans["support"][n - 1, :len(support)] = support
+    plans["row_valid"][0, :len(tlen)] = True
+    plans["row_valid"][n - 1, :len(support)] = True
+    return plans
+
+
+def jax_images(plans, options):
+    """The JAX package's long-read encoder on stacked plans (no alt
+    planes): (N, band + R, W, C) uint8."""
+    from deepvariant_tpu.make_examples.pileup_jax import (
+        make_longread_encode_fn,
+    )
+    from deepvariant_tpu_torch.calling.plan_predictor import PLAN_KEYS
+
+    n, rows, width = plans["bases"].shape
+    alt = (np.zeros((n, 2, rows, width), np.uint8),
+           np.zeros((n, 2, rows), bool), np.zeros((n, 2, width), np.uint8),
+           np.zeros((n, 2), bool))
+    encode = make_longread_encode_fn(options)
+    return np.asarray(encode(*[plans[k] for k in PLAN_KEYS], *alt))
