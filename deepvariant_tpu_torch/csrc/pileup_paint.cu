@@ -33,7 +33,8 @@
 // (254*min(q,40)/40, then -> int32 -> uint8); a masked pixel is 0, which
 // is what its float mask multiply gives. The rows form turns a row color
 // into a byte the same way (float -> int32 -> uint8). The plan form's row
-// colors follow the encoder's `scale`, 254*(min(v,cap)/cap), and its
+// colors follow the encoder's `scale`, 254*(min(v,cap)/cap), as XLA
+// compiles it (a multiply by the folded constant 254*(1/cap)), and its
 // 254*t/1000 for tlen, and convert float -> uint8 as XLA does: truncate
 // and saturate at 0 and 255. abs(tlen) wraps in int32 as jnp.abs does,
 // so tlen = -2**31 gives color 0. A support code indexes its table the
@@ -86,6 +87,7 @@
 struct DvPlanColors {
   int32_t band;             // reference band height
   float mapq_cap;           // mapping_quality_cap
+  float mapq_scale;         // 254 * (1 / mapq_cap), in float32
   uint8_t strand[2];        // positive, negative strand color
   uint8_t support[3];       // read_supports_variant table, codes 0..2
   uint8_t band_colors[6];   // the band's channels 1..6
@@ -163,10 +165,12 @@ struct PlanForm {
   DvPlanColors colors;
 
   __device__ RowInfo row(uint32_t i) const {
-    const float cap = colors.mapq_cap;
-    const uint32_t mapq_color =
-        saturate_u8(254.0f * (fminf(static_cast<float>(mapq[i]), cap) /
-                              cap));
+    // XLA compiles the encoder's 254 * (min(v, cap) / cap) as
+    // min(v, cap) * s with s = 254 * (1 / cap) folded in float32: not the
+    // IEEE quotient's byte for some caps (47, but not the default 60).
+    const uint32_t mapq_color = saturate_u8(
+        fminf(static_cast<float>(mapq[i]), colors.mapq_cap) *
+        colors.mapq_scale);
     // Selects, not indexing: a kernel parameter indexed at run time
     // would be copied to local memory.
     const uint32_t strand_color =

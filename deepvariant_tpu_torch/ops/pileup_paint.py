@@ -30,6 +30,7 @@ import ctypes
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from deepvariant_tpu_torch.ops import _build
@@ -63,6 +64,7 @@ class _PlanColorsC(ctypes.Structure):
     """`DvPlanColors` of csrc/pileup_paint.cu."""
 
     _fields_ = [("band", ctypes.c_int32), ("mapq_cap", ctypes.c_float),
+                ("mapq_scale", ctypes.c_float),
                 ("strand", ctypes.c_uint8 * 2),
                 ("support", ctypes.c_uint8 * 3),
                 ("band_colors", ctypes.c_uint8 * 6)]
@@ -109,6 +111,15 @@ def _divide(x: torch.Tensor, divisor: float) -> torch.Tensor:
     return x / x.new_full((), divisor)
 
 
+def scale_factor(cap: float) -> np.float32:
+    """254 * (1 / cap) in float32: the factor of the JAX encoder's
+    `scale`, 254 * (min(v, cap) / cap), as XLA compiles it. XLA turns
+    the division by the constant into a multiply by its reciprocal and
+    folds the two constants, so for 30 caps up to 255 (47 among them)
+    the color is not the IEEE quotient's byte; at 40 and 60 it is."""
+    return np.float32(MAX_PIXEL) * (np.float32(1) / np.float32(cap))
+
+
 def rows_form_args(bases, quals, mapq, rev, tlen, support, row_valid,
                    ref_windows, colors: PlanColors):
     """The arguments of `paint_pileup` for these plan rows: the coverage
@@ -116,8 +127,9 @@ def rows_form_args(bases, quals, mapq, rev, tlen, support, row_valid,
     pileup_jax.py:563-633 does (uint8 colors, saturated)."""
     covered = (bases != 0) & row_valid[:, :, None]
     cap = float(colors.mapq_cap)
-    mapq_color = _saturate_uint8(MAX_PIXEL * _divide(
-        torch.clamp(mapq.to(torch.float32), max=cap), cap))
+    mapq_color = _saturate_uint8(
+        torch.clamp(mapq.to(torch.float32), max=cap)
+        * float(scale_factor(cap)))
     strand_color = torch.where(rev, colors.strand[1], colors.strand[0])
     # JAX indexing wraps a negative index once, then clamps.
     index = support.to(torch.int64)
@@ -258,7 +270,8 @@ def paint_pileup_plan(bases, quals, mapq, rev, tlen, support, row_valid,
         return paint_pileup_plan_reference(bases, quals, mapq, rev, tlen,
                                            support, row_valid, ref_windows,
                                            colors)
-    c = _PlanColorsC(colors.band, colors.mapq_cap, tuple(colors.strand),
+    c = _PlanColorsC(colors.band, colors.mapq_cap,
+                     scale_factor(colors.mapq_cap), tuple(colors.strand),
                      tuple(colors.support), tuple(colors.band_colors))
     inputs = [t.data_ptr() for t in (bases, quals, mapq, rev, tlen, support,
                                      row_valid, ref_windows)] + [c]

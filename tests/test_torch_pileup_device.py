@@ -54,6 +54,22 @@ def test_options_outside_the_kernel_follow_jax():
     np.testing.assert_array_equal(got, want)
 
 
+def test_mapq_cap_scales_as_xla_compiles_it():
+    """XLA turns the encoder's 254 * (min(v, cap) / cap) into a multiply
+    by the folded constant 254 * (1 / cap): at cap 47 a mapq of 47 or
+    more paints 253, not the IEEE quotient's 254."""
+    kw = dict(mapping_quality_cap=47)
+    plans = random_plans(2, 8)
+    plans["bases"][0, 45] = ord("A")
+    plans["mapq"][0] = np.arange(95) + 10
+    plans["row_valid"][0] = True
+    want = jax_images(plans, jax_pileup.PileupOptions(**kw))
+    encode = make_longread_encode_fn(pileup.PileupOptions(**kw))
+    got = encode(*[torch.from_numpy(plans[k]) for k in PLAN_KEYS]).numpy()
+    assert set(want[0, 5 + 45, :, 2]) == {253}
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("kw,error", [
     (dict(channels=tuple(pileup.DEFAULT_CHANNELS)), NotImplementedError),
     (dict(channels=tuple(pileup.WGS_CHANNELS + [pileup.CH_HAPLOTYPE_TAG])),

@@ -185,13 +185,13 @@ def test_plan_wrapper_rejects_bad_colors(colors):
 
 def test_plan_colors_struct_matches_the_kernel_layout():
     """_PlanColorsC must lay out as csrc/pileup_paint.cu's DvPlanColors:
-    int32 band, float mapq_cap, u8 strand[2], support[3],
-    band_colors[6], padded to 4 bytes."""
+    int32 band, float mapq_cap, float mapq_scale, u8 strand[2],
+    support[3], band_colors[6], padded to 4 bytes."""
     c = pp._PlanColorsC
     assert [getattr(c, f).offset for f in (
-        "band", "mapq_cap", "strand", "support", "band_colors")] == \
-        [0, 4, 8, 10, 13]
-    assert ctypes.sizeof(c) == 20
+        "band", "mapq_cap", "mapq_scale", "strand", "support",
+        "band_colors")] == [0, 4, 8, 12, 14, 17]
+    assert ctypes.sizeof(c) == 24
 
 
 def test_module_imports_without_nvcc_and_builds_nothing():
