@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of stage 2 (deepvariant_tpu_torch) on one CUDA
-card and check what comes out.
+"""Drive the PyTorch port (deepvariant_tpu_torch) on one CUDA card and
+check what comes out.
 
 Run from the repository root, with one card visible:
 
@@ -11,25 +11,36 @@ Phases:
      print the build time and the compiler's register report.
   2. Hold each kernel against its plain PyTorch version on the card,
      bit-exact: both entry points of the paint kernel (rows form and
-     plan form) at the main path's shape and at two shapes whose tiles
-     start and end off row and candidate boundaries, on plans with tlen
-     -2**31 and support codes outside 0..2. Time both forms and their
-     plain versions with CUDA events, and check under torch.profiler
-     that one WgsPlanPainter call launches exactly one CUDA kernel.
+     plan form) at the WGS path's shape and at two shapes whose tiles
+     start and end off row and candidate boundaries, and the plan form
+     at the long-read shape (512x95x147, 8 channels and the two diff
+     planes), at 12 planes and at an odd shape with a shuffled channel
+     order and non-default colors; on plans with tlen -2**31, support
+     codes outside 0..2, hp outside 0..2 and alt_present in all four
+     combinations. Time the forms and their plain versions with CUDA
+     events at the WGS and long-read shapes, and check under
+     torch.profiler that one painter call launches exactly one CUDA
+     kernel.
   3. Staged call_variants: write synthetic 100x221x7 WGS examples and a
      seeded checkpoint with the port's own writers, run the CLI
      (`deepvariant_tpu_torch.scripts.call_variants.main`) on the card at
      batch 512 with the default writer processes, and check the CVOs.
   4. The fused plan path: PlanPredictor over synthetic WGS plans at batch
      512, through the CUDA paint kernel.
-  5. One JSON line per the kernels, the card's name and power limit, and
+  5. The long-read fused plan path at full width: PlanPredictor with the
+     PACBIO pileup preset (100x147, 8 channels + diff_channels = 10
+     planes), InceptionV3(10) with seeded weights, batch 512, bfloat16,
+     over plans that carry the alt tensors.
+  6. The region-gather encoder: encode_region_candidates over synthetic
+     reads on the card equals the same call on the CPU.
+  7. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
-The launch counts are set to 0 just before phases 3 and 4 (the main
-path) and read just after; the comparisons of phase 2 and of the checks
-after phase 4 are not counted. Any failed check raises, and the script
-exits non-zero; it also exits non-zero, printing no result, when no CUDA
-card is available.
+The launch counts are set to 0 just before phases 3 and 4 (the WGS
+paths) and read just after, and again around phase 5 (the long-read
+path); the comparisons of phase 2 and of the checks after the paths are
+not counted. Any failed check raises, and the script exits non-zero; it
+also exits non-zero, printing no result, when no CUDA card is available.
 """
 
 from __future__ import annotations
@@ -50,15 +61,48 @@ import time
 import numpy as np
 
 N_CANDIDATES, ROWS, WIDTH, BAND = 512, 95, 221, 5
-# The plan form's arguments, in `paint_pileup_plan`'s order.
-PLAN_FORM_KEYS = ("bases", "quals", "mapq", "rev", "tlen", "support",
+# The rows form's arguments among the plan's tensors, in
+# `rows_form_args`' order.
+ROWS_FORM_KEYS = ("bases", "quals", "mapq", "rev", "tlen", "support",
                   "row_valid", "ref_window")
-# (N, R, band, W) of the paint checks: the main path's shape, then two
-# whose tiles cut rows and candidates at odd offsets.
-PAINT_SHAPES = ((N_CANDIDATES, ROWS, BAND, WIDTH), (3, 93, 7, WIDTH),
-                (5, ROWS, BAND, 100))
+LONGREAD_CHANNELS = (1, 2, 3, 4, 5, 6, 7, 26)   # the PACBIO preset's
+ALL_DEVICE_CHANNELS = (1, 2, 3, 4, 5, 6, 7, 8, 19, 26)
+# Non-default values of every color option and cap.
+ODD_COLORS = dict(
+    base_color_offset_a_and_g=33, base_color_offset_t_and_c=21,
+    base_color_stride=55, allele_supporting_read_alpha=0.95,
+    allele_unsupporting_read_alpha=0.45,
+    other_allele_supporting_read_alpha=0.7,
+    reference_matching_read_alpha=0.3,
+    reference_mismatching_read_alpha=0.9, reference_base_quality=33,
+    positive_strand_color=11, negative_strand_color=222,
+    base_quality_cap=37, mapping_quality_cap=51,
+    hp_tag_for_assembly_polishing=2)
+# (name, N, PileupOptions fields) of the paint checks: the WGS path's
+# shape, two whose tiles cut rows and candidates at odd offsets, the
+# long-read path's shape, all twelve planes, and an odd shape with a
+# shuffled channel order and ODD_COLORS.
+PAINT_CASES = (
+    ("wgs", N_CANDIDATES, dict()),
+    ("wgs-band7", 3, dict(reference_band_height=7)),
+    ("wgs-w100", 5, dict(width=100)),
+    ("longread", N_CANDIDATES, dict(
+        channels=LONGREAD_CHANNELS, alt_aligned_pileup="diff_channels",
+        width=147)),
+    ("12-planes", 16, dict(
+        channels=ALL_DEVICE_CHANNELS, alt_aligned_pileup="diff_channels",
+        width=147)),
+    ("odd", 5, dict(
+        channels=(26, 6, 19, 1, 8, 3, 7, 2, 5, 4, 1),
+        alt_aligned_pileup="none", width=99, height=64,
+        reference_band_height=3, **ODD_COLORS)),
+    ("odd-diff", 7, dict(
+        channels=(7, 5, 2, 26, 1), alt_aligned_pileup="diff_channels",
+        width=53, height=41, reference_band_height=2, **ODD_COLORS)),
+)
 SHAPE = (100, 221, 7)
-N_EXAMPLES = 1024
+LONGREAD_SHAPE = (100, 147, 10)
+N_EXAMPLES = 512
 STAGED_REPEATS = 8  # the example file is read this many times when timed
 N_PLANS = 1024
 BATCH = 512
@@ -123,31 +167,48 @@ def device_ms(fn, reps: int = 50, repeats: int = 3) -> float:
     return statistics.median(times)
 
 
-def random_plans(n: int, seed: int, rows: int = ROWS, width: int = WIDTH):
-    """n WGS plan dicts with invalid rows, N bases, q up to 255, mapq
-    above the cap, support codes in and outside 0..2, and tlen negative
-    and huge, -2**31 included."""
+def random_plans(n: int, seed: int, rows: int = ROWS, width: int = WIDTH,
+                 alt: bool = False):
+    """n plan dicts with invalid rows, N and '*' bases, q up to 255, mapq
+    above the cap, support codes and hp in and outside 0..2, and tlen
+    negative and huge, -2**31 included. With `alt` they carry the alt
+    tensors of diff mode, with alt_present in all four combinations."""
     rng = np.random.RandomState(seed)
-    alphabet = np.frombuffer(b"ACGTN", np.uint8)
-    bases = alphabet[rng.randint(0, 5, (n, rows, width))]
-    bases[rng.rand(n, rows, width) < 0.3] = 0
+    alphabet = np.frombuffer(b"ACGTN*", np.uint8)
+
+    def random_bases(*shape):
+        bases = alphabet[rng.randint(0, 6, shape)]
+        bases[rng.rand(*shape) < 0.3] = 0
+        return bases
+
     tlen = rng.randint(-5000, 5000, (n, rows)).astype(np.int32)
     tlen[:, :3] = [-2**31, -2**31 + 1, 2**31 - 1]
     support = rng.randint(0, 3, (n, rows)).astype(np.int8)
     support[:, 3:9] = [-1, -2, -3, -128, 3, 127]
+    hp = rng.randint(0, 3, (n, rows)).astype(np.int8)
+    hp[:, 9:13] = [-128, -1, 3, 127]
     stacked = {
-        "bases": bases,
+        "bases": random_bases(n, rows, width),
         "quals": rng.randint(0, 256, (n, rows, width)).astype(np.uint8),
         "mapq": rng.randint(0, 256, (n, rows)).astype(np.uint8),
         "rev": rng.rand(n, rows) < 0.5,
-        "hp": rng.randint(0, 3, (n, rows)).astype(np.int8),
+        "hp": hp,
         "tlen": tlen,
         "supp": rng.rand(n, rows) < 0.1,
         "support": support,
-        "af": np.zeros((n, rows), np.uint8),
+        "af": rng.randint(0, 256, (n, rows)).astype(np.uint8),
         "row_valid": rng.rand(n, rows) < 0.85,
         "ref_window": alphabet[rng.randint(0, 5, (n, width))],
     }
+    if alt:
+        present = np.array([[1, 1], [0, 1], [1, 0], [0, 0]], bool)
+        stacked.update({
+            "alt_bases": random_bases(n, 2, rows, width),
+            "alt_row_valid": rng.rand(n, 2, rows) < 0.85,
+            "alt_ref": alphabet[rng.randint(0, 5, (n, 2, width))],
+            "alt_present": present[rng.randint(0, 4, n)],
+        })
+        stacked["alt_present"][:4] = present[:n]
     return [{k: v[i] for k, v in stacked.items()} for i in range(n)]
 
 
@@ -195,114 +256,144 @@ def kernels_launched(fn) -> list:
     return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def phase_paint_kernel(device) -> dict:
-    """Both forms of the paint kernel against their plain versions at
-    PAINT_SHAPES, their timings at the main path's shape, and the
-    painter's one launch."""
+def stack_plans(plans, keys, device):
     import torch
 
-    from deepvariant_tpu_torch.calling.plan_predictor import PLAN_KEYS
-    from deepvariant_tpu_torch.make_examples.pileup import PileupOptions
+    return [torch.from_numpy(np.stack([p[k] for p in plans])).to(device)
+            for k in keys]
+
+
+def phase_paint_kernel(device) -> list:
+    """Both forms of the paint kernel against their plain versions at
+    PAINT_CASES, their timings at the WGS and long-read shapes, and the
+    painter's one launch. Returns the two entries of the kernels line."""
+    import torch
+
+    from deepvariant_tpu_torch.make_examples.pileup import (
+        WGS_CHANNELS,
+        PileupOptions,
+    )
     from deepvariant_tpu_torch.make_examples.pileup_device import (
-        WgsPlanPainter,
+        ALT_KEYS,
+        PLAN_KEYS,
+        make_longread_encode_fn,
     )
     from deepvariant_tpu_torch.ops import pileup_paint as pp
 
-    max_err, shapes = 0, []
-    for k, (n, rows, band, width) in enumerate(PAINT_SHAPES):
-        plans = random_plans(n, SEED + k, rows, width)
-        t = {key: torch.from_numpy(np.stack([p[key] for p in plans])).to(
-            device) for key in PLAN_KEYS}
-        painter = WgsPlanPainter(PileupOptions(reference_band_height=band))
-        plan_args = [t[key] for key in PLAN_FORM_KEYS]
-        rows_args = pp.rows_form_args(*plan_args, painter.colors)
-        shapes.append((painter, t, plan_args, rows_args))
-        checks = {
-            "rows": (pp.paint_pileup(*rows_args),
-                     pp.paint_pileup_reference(*rows_args)),
-            "plan": (pp.paint_pileup_plan(*plan_args, painter.colors),
-                     pp.paint_pileup_plan_reference(*plan_args,
-                                                    painter.colors)),
-        }
+    max_err, cases = 0, {}
+    for k, (name, n, fields) in enumerate(PAINT_CASES):
+        options = PileupOptions(**fields)
+        painter = make_longread_encode_fn(options)
+        rows, width = options.max_reads, options.width
+        plans = random_plans(n, SEED + k, rows, width, alt=True)
+        args = stack_plans(plans, PLAN_KEYS + ALT_KEYS, device)
+        checks = {"plan": (
+            pp.paint_pileup_plan(*args, painter.colors),
+            pp.paint_pileup_plan_reference(*args, painter.colors))}
+        rows_args = None
+        if tuple(options.channels) == tuple(WGS_CHANNELS):
+            rows_args = pp.rows_form_args(
+                *stack_plans(plans, ROWS_FORM_KEYS, device), painter.colors)
+            checks["rows"] = (pp.paint_pileup(*rows_args),
+                              pp.paint_pileup_reference(*rows_args))
         torch.cuda.synchronize()
         for form, (out, plain) in checks.items():
+            shape = (n, rows + (options.reference_band_height
+                                if form == "plan" else 0), width,
+                     painter.colors.planes)
+            if tuple(out.shape) != shape or out.shape != plain.shape:
+                raise AssertionError(
+                    f"paint kernel, {form} form, case {name}: shape "
+                    f"{tuple(out.shape)}, plain {tuple(plain.shape)}, "
+                    f"expected {shape}")
             err = int((out.int() - plain.int()).abs().max())
             max_err = max(max_err, err)
-            if out.shape != plain.shape or not torch.equal(out, plain):
+            if not torch.equal(out, plain):
                 raise AssertionError(
                     f"paint kernel, {form} form, differs from its plain "
-                    f"version at N={n} R={rows} band={band} W={width} "
-                    f"(max abs err {err})")
-        print(f"[paint] rows and plan forms == plain at N={n} R={rows} "
-              f"band={band} W={width}")
+                    f"version in case {name} (max abs err {err})")
+        print(f"[paint] {' and '.join(sorted(checks))} == plain in case "
+              f"{name}: N={n} R={rows} band={options.reference_band_height} "
+              f"W={width} planes={painter.colors.planes}")
+        cases[name] = (painter, args, rows_args)
 
-    # The main path's shape, the first of PAINT_SHAPES, from here on.
-    painter, t, plan_args, rows_args = shapes[0]
-    encode_args = [t[key] for key in PLAN_KEYS]
-    launched = kernels_launched(lambda: painter(*encode_args))
-    print(f"[paint] one WgsPlanPainter call on the card: {launched}")
-    if len(launched) != 1 or "paint_kernel" not in launched[0]:
-        raise AssertionError(f"the painter launched {len(launched)} device "
-                             f"activities, not one paint kernel: {launched}")
+    timed = {}
+    for name in ("wgs", "longread"):
+        painter, args, rows_args = cases[name]
+        launched = kernels_launched(lambda: painter(*args))
+        print(f"[paint] one {name} painter call on the card: {launched}")
+        if len(launched) != 1 or "paint_kernel" not in launched[0]:
+            raise AssertionError(
+                f"the {name} painter launched {len(launched)} device "
+                f"activities, not one paint kernel: {launched}")
+        forms = [("plan", lambda *a: pp.paint_pileup_plan(*a, painter.colors),
+                  lambda *a: pp.paint_pileup_plan_reference(
+                      *a, painter.colors),
+                  args, args if painter.colors.diff else args[:len(PLAN_KEYS)])]
+        if rows_args is not None:
+            forms.append(("rows", pp.paint_pileup, pp.paint_pileup_reference,
+                          rows_args, rows_args))
+        for form, kernel, plain, call_args, read_args in forms:
+            out = kernel(*call_args)
+            bound_ms, bound_by = bound(read_args, out)
+            kernel_ms = device_ms(lambda: kernel(*call_args))
+            plain_ms = device_ms(lambda: plain(*call_args), reps=10)
+            timed[name, form] = (kernel_ms, plain_ms, bound_ms, bound_by)
+            print(f"[paint] {name}, {form} form at {tuple(out.shape)}: "
+                  f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{n_bytes(read_args) + n_bytes([out])} bytes): "
+                  f"{bound_ms / kernel_ms:.1%} of the bound")
+        # A yardstick, not the same function: PyTorch's fill of a tensor
+        # the size of the plan form's output, the write traffic alone.
+        image = torch.empty_like(painter(*args))
+        timed[name, "fill"] = device_ms(lambda: image.fill_(7))
+        print(f"[paint] fill_ of the {n_bytes([image])}-byte {name} image: "
+              f"{timed[name, 'fill']:.4f} ms")
 
-    numbers = {}
-    for form, kernel, plain, args in (
-            ("rows", pp.paint_pileup, pp.paint_pileup_reference, rows_args),
-            ("plan", lambda *a: pp.paint_pileup_plan(*a, painter.colors),
-             lambda *a: pp.paint_pileup_plan_reference(*a, painter.colors),
-             plan_args)):
-        out = kernel(*args)
-        bound_ms, bound_by = bound(args, out)
-        kernel_ms = device_ms(lambda: kernel(*args))
-        plain_ms = device_ms(lambda: plain(*args), reps=10)
-        numbers[form] = (kernel_ms, plain_ms, bound_ms, bound_by)
-        print(f"[paint] {form} form at {tuple(out.shape)}: kernel "
-              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}, {n_bytes(args) + n_bytes([out])}"
-              f" bytes): {bound_ms / kernel_ms:.1%} of the bound")
-    kernel_ms, plain_ms, bound_ms, bound_by = numbers["rows"]
-    plan_ms, plan_plain_ms, plan_bound_ms, plan_bound_by = numbers["plan"]
-    # A yardstick, not the same function: PyTorch's fill of a tensor the
-    # size of the plan form's output, the write traffic alone.
-    image = torch.empty((N_CANDIDATES, BAND + ROWS, WIDTH, 7),
-                        dtype=torch.uint8, device=device)
-    fill_ms = device_ms(lambda: image.fill_(7))
-    print(f"[paint] fill_ of the {n_bytes([image])}-byte image: "
-          f"{fill_ms:.4f} ms")
-    return {
-        "name": "pileup_paint",
-        "route": "cuda",
-        "source": "deepvariant_tpu_torch/csrc/pileup_paint.cu",
-        "replaces": "deepvariant_tpu/ops/pileup_paint.py:87",
-        "tpu_kernel": "deepvariant_tpu/ops/pileup_paint.py:_paint_kernel",
-        "launches": None,
-        "max_abs_err": max_err,
-        "max_abs_diff": max_err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-        "plan_ms": plan_ms,
-        "plan_plain_ms": plan_plain_ms,
-        "plan_bound_ms": plan_bound_ms,
-        "plan_bound_by": plan_bound_by,
-        "image_fill_ms": fill_ms,
-    }
+    def entry(name, key, **more):
+        kernel_ms, plain_ms, bound_ms, bound_by = timed[key]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "deepvariant_tpu_torch/csrc/pileup_paint.cu",
+            "replaces": "deepvariant_tpu/ops/pileup_paint.py:87",
+            "tpu_kernel": "deepvariant_tpu/ops/pileup_paint.py:_paint_kernel",
+            "launches": None,
+            "max_abs_err": max_err,
+            "max_abs_diff": max_err,
+            "ms": kernel_ms,
+            "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            **more,
+        }
+
+    plan_ms, plan_plain_ms, plan_bound_ms, plan_bound_by = timed["wgs", "plan"]
+    return [
+        # The rows form (the TPU kernel's counterpart) and the plan form
+        # at the WGS paths' shape, 512x95x221, 7 planes.
+        entry("pileup_paint", ("wgs", "rows"), plan_ms=plan_ms,
+              plan_plain_ms=plan_plain_ms, plan_bound_ms=plan_bound_ms,
+              plan_bound_by=plan_bound_by,
+              image_fill_ms=timed["wgs", "fill"]),
+        # The plan form at the long-read path's shape, 512x95x147, 8
+        # channels and the two diff planes.
+        entry("pileup_paint_longread", ("longread", "plan"),
+              image_fill_ms=timed["longread", "fill"]),
+    ]
 
 
 def write_staged_inputs(tmp: str):
     """Synthetic examples, their example_info.json, and a seeded
     checkpoint, all written with the port's own writers."""
-    import torch
-
     from deepvariant_tpu_torch.core.types import Variant, VariantCall
     from deepvariant_tpu_torch.io import examples
     from deepvariant_tpu_torch.io.tfrecord import TFRecordWriter
     from deepvariant_tpu_torch.make_examples.pileup import WGS_CHANNELS
     from deepvariant_tpu_torch.models.checkpoint import save_variables
-    from deepvariant_tpu_torch.models.inception_v3 import create_model
 
     start = time.time()
     rng = np.random.RandomState(SEED)
@@ -327,14 +418,7 @@ def write_staged_inputs(tmp: str):
     examples.write_example_info(
         f"{family}-00000-of-{STAGED_REPEATS:05d}.tfrecord", SHAPE,
         WGS_CHANNELS)
-    model = create_model(SHAPE[2], dtype=torch.float32, device="cpu",
-                         generator=torch.Generator().manual_seed(SEED))
-    with torch.no_grad():
-        # He scaling keeps the activations' scale through the ReLUs of the
-        # random network, so the probabilities are not all 1/3.
-        for module in model.modules():
-            if isinstance(module, torch.nn.Conv2d):
-                module.weight.mul_(2.0 ** 0.5)
+    model = seeded_model(SHAPE[2])
     ckpt_dir = os.path.join(tmp, "ckpt")
     save_variables(os.path.join(ckpt_dir, "model.msgpack"), model,
                    {"shape": list(SHAPE), "channels": WGS_CHANNELS})
@@ -409,20 +493,42 @@ def phase_staged(tmp: str, device):
             "bf16_f32_max_abs_dp": max_dp}, model
 
 
-def phase_plans(model, device):
+def seeded_model(channels: int):
+    """InceptionV3 for `channels` planes with weights from SEED, on the
+    CPU in float32."""
+    import torch
+
+    from deepvariant_tpu_torch.models.inception_v3 import create_model
+
+    model = create_model(channels, dtype=torch.float32, device="cpu",
+                         generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        # He scaling keeps the activations' scale through the ReLUs of the
+        # random network, so the probabilities are not all 1/3.
+        for module in model.modules():
+            if isinstance(module, torch.nn.Conv2d):
+                module.weight.mul_(2.0 ** 0.5)
+    return model
+
+
+def phase_plans(model, device, options, tag):
     """Returns the timed stream's numbers and the predictor and plans
     for the checks that follow the count read."""
     from deepvariant_tpu_torch.calling.plan_predictor import (
         PlannedExample,
         PlanPredictor,
+        compact_plan,
     )
     from deepvariant_tpu_torch.core.types import Variant
-    from deepvariant_tpu_torch.make_examples.pileup import PileupOptions
 
-    plans = random_plans(N_PLANS, SEED + 1)
+    diff_mode = options.alt_aligned_pileup == "diff_channels"
+    # Plans come as the planner makes them, alt tensors and all; without
+    # diff mode they are stripped as the stream's workers strip them.
+    plans = [compact_plan(p, diff_mode) for p in random_plans(
+        N_PLANS, SEED + 1, options.max_reads, options.width, alt=True)]
     payloads = [PlannedExample(p, Variant(start=i), [0], 1)
                 for i, p in enumerate(plans)]
-    predictor = PlanPredictor(model, PileupOptions(), batch_size=BATCH,
+    predictor = PlanPredictor(model, options, batch_size=BATCH,
                               device=device)
     for _ in predictor.predict_plan_stream(payloads):  # warm-up pass
         pass
@@ -432,55 +538,57 @@ def phase_plans(model, device):
     probs = np.stack([p for _, p in results])
     if probs.shape != (N_PLANS, 3) or not np.isfinite(probs).all() or \
             np.abs(probs.sum(-1) - 1).max() > 1e-5:
-        raise AssertionError("plan path probabilities are malformed")
-    print(f"[plans] {N_PLANS} plans in {seconds:.3f} s: "
+        raise AssertionError(f"{tag} plan path probabilities are malformed")
+    print(f"[{tag}] {N_PLANS} plans in {seconds:.3f} s: "
           f"{N_PLANS / seconds:.1f} plans/s")
     return {"plans": N_PLANS, "plans_per_s": N_PLANS / seconds}, \
         predictor, plans, probs
 
 
-def check_plan_path(predictor, plans, probs, device):
+def check_plan_path(predictor, plans, probs, device, tag):
     """The fused images equal the plain painter's on the same plans, and
     the fused probabilities equal the staged Predictor's on them."""
     import torch
 
     from deepvariant_tpu_torch.calling.call_variants import Predictor
-    from deepvariant_tpu_torch.calling.plan_predictor import PLAN_KEYS
-    from deepvariant_tpu_torch.make_examples.pileup import PileupOptions
     from deepvariant_tpu_torch.make_examples.pileup_device import (
-        WgsPlanPainter,
+        ALT_KEYS,
+        PLAN_KEYS,
+        make_longread_encode_fn,
     )
 
+    o = predictor.options
     batch = plans[:BATCH]
     images = predictor.encode(batch).cpu()
-    plain = WgsPlanPainter(PileupOptions())(*[
-        torch.from_numpy(np.stack([p[k] for p in batch])) for k in PLAN_KEYS])
-    if not torch.equal(images, plain):
-        raise AssertionError("fused images differ from the plain painter")
+    keys = PLAN_KEYS + (ALT_KEYS if predictor.diff_mode else ())
+    plain = make_longread_encode_fn(o)(*stack_plans(batch, keys, "cpu"))
+    shape = (BATCH, o.height, o.width, predictor.predictor.model.num_channels)
+    if tuple(images.shape) != shape or not torch.equal(images, plain):
+        raise AssertionError(f"{tag}: fused images {tuple(images.shape)} "
+                             "differ from the plain painter")
     staged = Predictor(predictor.predictor.model, BATCH, device,
                        torch.bfloat16)(images.numpy())
     if not np.array_equal(staged, probs[:BATCH]):
         raise AssertionError(
-            "fused probabilities differ from Predictor on the same images "
-            f"(max {float(np.abs(staged - probs[:BATCH]).max()):.3g})")
-    print("[plans] fused images == plain painter; fused probabilities == "
-          "Predictor on those images")
+            f"{tag}: fused probabilities differ from Predictor on the same "
+            f"images (max {float(np.abs(staged - probs[:BATCH]).max()):.3g})")
+    print(f"[{tag}] fused images {shape} == plain painter; fused "
+          "probabilities == Predictor on those images")
 
 
-def time_device_steps(predictor, plans, model, device) -> dict:
-    """Device time per batch of each step of the fused path (CUDA events,
-    inputs already on the card): the painter, and the CNN unfolded and
-    with --fast_graph's folded BN and 8-channel stem."""
+def time_device_steps(predictor, plans, model, device, tag) -> dict:
+    """Time per batch of each step of the fused path (CUDA events, inputs
+    already on the card): the painter and the CNN, each as single calls
+    (`*_ms`, the host's launches included) and back to back on the card
+    (`*_device_ms`), and the CNN with --fast_graph's folded BN and
+    8-channel stem (where the model has fewer than 8 channels)."""
     import torch
 
     from deepvariant_tpu_torch.calling.call_variants import Predictor
-    from deepvariant_tpu_torch.calling.plan_predictor import PLAN_KEYS
 
     staged = predictor.stage(plans[:BATCH])
-    args = [staged[k] for k in PLAN_KEYS]
+    args = list(staged.values())
     images = predictor.encode_fn(*args)
-    fast = Predictor(model, BATCH, device, torch.bfloat16, fold_bn=True,
-                     pad_stem_to=8)
     with torch.inference_mode():
         steps = {
             "paint_step_ms": time_ms(lambda: predictor.encode_fn(*args)),
@@ -488,12 +596,113 @@ def time_device_steps(predictor, plans, model, device) -> dict:
                 lambda: predictor.encode_fn(*args)),
             "cnn_ms": time_ms(lambda: predictor.predictor.forward(images),
                               reps=10),
-            "cnn_fast_graph_ms": time_ms(lambda: fast.forward(images),
-                                         reps=10),
+            # The same forward queued behind a spin kernel: the card's
+            # time alone, without the host's launches of its kernels.
+            "cnn_device_ms": device_ms(
+                lambda: predictor.predictor.forward(images), reps=3),
         }
-    print("[steps] per batch of %d on the card: " % BATCH + ", ".join(
+        if model.num_channels < 8:
+            fast = Predictor(model, BATCH, device, torch.bfloat16,
+                             fold_bn=True, pad_stem_to=8)
+            steps["cnn_fast_graph_ms"] = time_ms(
+                lambda: fast.forward(images), reps=10)
+    print(f"[{tag}] per batch of {BATCH} on the card: " + ", ".join(
         f"{k} {v:.3f}" for k, v in steps.items()))
     return steps
+
+
+def synthetic_region(seed: int, n_reads: int = 240, span: int = 400):
+    """Reads with M, I, D, N, S and H in their CIGARs on both strands,
+    some paired, tagged and supplementary, and four candidates over
+    them: (ReadBatch, [DeepVariantCall], [alt alleles], reference)."""
+    from deepvariant_tpu_torch.core.cigar import parse_cigar_string, read_span
+    from deepvariant_tpu_torch.core.types import Read, Variant
+    from deepvariant_tpu_torch.io.bam import ReadBatch
+    from deepvariant_tpu_torch.make_examples.variant_caller import (
+        DeepVariantCall,
+    )
+
+    rng = np.random.RandomState(seed)
+    reference = np.frombuffer(b"ACGT", np.uint8)[rng.randint(0, 4, span)]
+    cigars = ["60M", "20M2I38M", "5S25M3D30M", "30M40N30M", "3H57M2S",
+              "10M1I10M1D10M5N29M"]
+    reads = []
+    for i in range(n_reads):
+        cigar = parse_cigar_string(cigars[i % len(cigars)])
+        length = read_span(cigar)
+        paired = bool(i % 3)
+        reads.append(Read(
+            fragment_name=f"read{i // 2:03d}",
+            aligned_sequence="".join("ACGT"[b] for b in rng.randint(
+                0, 4, length)),
+            aligned_quality=bytes(rng.randint(0, 61, length).tolist()),
+            reference_name="chr1", position=int(rng.randint(0, span - 120)),
+            mapping_quality=int(rng.randint(0, 71)), cigar=cigar,
+            reverse_strand=bool(rng.randint(2)),
+            read_number=i % 2 if paired else 0,
+            number_reads=2 if paired else 1,
+            fragment_length=int(rng.randint(-1500, 1500)),
+            supplementary_alignment=i % 7 == 0,
+            info={"HP": [int(rng.randint(0, 3))]}))
+    batch = ReadBatch.from_reads(reads, ["chr1"])
+    calls, combos = [], []
+    for start in (5, 130, 200, span - 10):
+        variant = Variant(reference_name="chr1", start=start, end=start + 1,
+                          reference_bases="A", alternate_bases=["C", "AT"])
+        picked = rng.permutation(n_reads)
+        calls.append(DeepVariantCall(
+            variant=variant,
+            allele_support={"C": sorted(picked[:15].tolist()),
+                            "AT": sorted(picked[15:25].tolist())},
+            allele_frequencies={"C": 0.31, "AT": 0.002}))
+        combos.append(["C"] if start % 2 else ["C", "AT"])
+    return batch, calls, combos, reference
+
+
+def phase_region_encoder(device):
+    """encode_region_candidates on the card equals the same call on the
+    CPU (its plain version), over synthetic reads and windows that hang
+    off both ends of the reference."""
+    from deepvariant_tpu_torch.make_examples.pileup import (
+        PileupEncoder,
+        PileupOptions,
+        reads_overlapping_variant,
+    )
+    from deepvariant_tpu_torch.make_examples.pileup_device import (
+        encode_region_candidates,
+    )
+
+    batch, calls, combos, reference = synthetic_region(SEED + 3)
+    options = PileupOptions(channels=ALL_DEVICE_CHANNELS, width=99,
+                            height=40, sort_by_haplotypes=True)
+    encoder = PileupEncoder(options)
+
+    def ref_query(variant):
+        cols = np.arange(options.width) + variant.start - options.half_width
+        window = reference[np.clip(cols, 0, len(reference) - 1)].copy()
+        window[(cols < 0) | (cols >= len(reference))] = ord("N")
+        return window
+
+    on_card = encode_region_candidates(encoder, calls, combos, batch,
+                                       ref_query, device=device)
+    on_cpu = encode_region_candidates(encoder, calls, combos, batch,
+                                      ref_query, device="cpu")
+    shape = (len(calls), options.height, options.width,
+             len(options.channels))
+    if on_card.shape != shape or not np.array_equal(on_card, on_cpu):
+        raise AssertionError("encode_region_candidates on the card differs "
+                             "from the CPU")
+    rows = int((on_cpu[:, options.reference_band_height:, :, 0] != 0)
+               .any(-1).sum())
+    crowded = sum(len(reads_overlapping_variant(batch, c.variant))
+                  > options.max_reads for c in calls)
+    if rows == 0 or crowded == 0:
+        raise AssertionError(
+            f"the synthetic region painted {rows} read rows and shuffled "
+            f"{crowded} crowded windows; both must happen")
+    print(f"[region] encode_region_candidates {shape} on the card == CPU "
+          f"({rows} read rows painted, {crowded} of {len(calls)} windows "
+          "crowded)")
 
 
 def main() -> int:
@@ -513,25 +722,48 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     summary = {"build_s": phase_build()}
-    kernels = [phase_paint_kernel(device)]
-    wrappers = {"pileup_paint": pp.paint_pileup}
+    kernels = phase_paint_kernel(device)
+    wgs_kernel, longread_kernel = kernels
+    from deepvariant_tpu_torch.make_examples.pileup import PileupOptions
+    from deepvariant_tpu_torch.make_examples.presets import (
+        apply_pileup_preset,
+    )
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        for fn in wrappers.values():
-            fn.launches = 0
+        # The WGS paths: the staged CLI, then the fused plan path.
+        pp.paint_pileup.launches = 0
         staged, model = phase_staged(tmp, device)
-        plan_numbers, predictor, plans, probs = phase_plans(model, device)
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        check_plan_path(predictor, plans, probs, device)
-        summary.update(time_device_steps(predictor, plans, model, device))
+        plan_numbers, predictor, plans, probs = phase_plans(
+            model, device, apply_pileup_preset(PileupOptions(), "WGS"),
+            "plans")
+        wgs_kernel["launches"] = pp.paint_pileup.launches
+        check_plan_path(predictor, plans, probs, device, "plans")
+        summary.update(time_device_steps(predictor, plans, model, device,
+                                         "steps"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    del predictor, plans, probs
+
+    # The long-read path: the PACBIO preset at 100x147x10.
+    longread_options = apply_pileup_preset(PileupOptions(), "PACBIO")
+    longread_model = seeded_model(LONGREAD_SHAPE[2])
+    pp.paint_pileup.launches = 0
+    longread_numbers, predictor, plans, probs = phase_plans(
+        longread_model, device, longread_options, "longread")
+    longread_kernel["launches"] = pp.paint_pileup.launches
+    check_plan_path(predictor, plans, probs, device, "longread")
+    summary.update({
+        f"longread_{k}": v for part in (
+            longread_numbers, time_device_steps(
+                predictor, plans, longread_model, device, "longread steps"))
+        for k, v in part.items()})
+    phase_region_encoder(device)
+
     for k in kernels:
-        k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} was not launched on "
-                                 "the main path")
+                                 "its path")
     summary.update(staged)
     summary.update(plan_numbers)
     summary["card"] = card

@@ -4,10 +4,11 @@ Counterpart of `deepvariant_tpu/calling/plan_predictor.py`: workers ship
 compact plan payloads (pre-gathered pileup row tensors) instead of
 painted images, and the card paints the pileup (the CUDA paint kernel
 through `make_examples.pileup_device`), normalizes it and runs
-InceptionV3 without the image leaving device memory.
-
-This slice implements the WGS channel set; other presets raise
-NotImplementedError when the predictor is built.
+InceptionV3 without the image leaving device memory. Any ordered list
+of the device channels is painted; with `alt_aligned_pileup`
+'diff_channels' the plans also carry the alt tensors (`ALT_KEYS`) and
+the image has two more planes, so the model must take
+`len(channels) + 2` channels.
 """
 
 from __future__ import annotations
@@ -26,16 +27,11 @@ from deepvariant_tpu_torch.calling.call_variants import (
 from deepvariant_tpu_torch.core.types import Variant
 from deepvariant_tpu_torch.make_examples.pileup import PileupOptions
 from deepvariant_tpu_torch.make_examples.pileup_device import (
+    ALT_KEYS,
+    PLAN_KEYS,
     make_longread_encode_fn,
 )
 from deepvariant_tpu_torch.models.inception_v3 import InceptionV3
-
-# Per-plan tensor keys in the encoder's argument order.
-PLAN_KEYS = (
-    "bases", "quals", "mapq", "rev", "hp", "tlen", "supp", "support",
-    "af", "row_valid", "ref_window",
-)
-ALT_KEYS = ("alt_bases", "alt_row_valid", "alt_ref", "alt_present")
 
 
 def compact_plan(plan: dict, diff_mode: bool) -> dict:
@@ -71,13 +67,22 @@ class PlanPredictor:
         fold_bn: bool = False,
     ):
         o = pileup_options
+        self.options = o
+        self.diff_mode = o.alt_aligned_pileup == "diff_channels"
         self.encode_fn = make_longread_encode_fn(o)
+        planes = len(o.channels) + (2 if self.diff_mode else 0)
+        if model.num_channels != planes:
+            raise ValueError(
+                f"the model takes {model.num_channels} channels, the "
+                f"pileup options paint {planes}")
+        # The keys staged and painted: the alt tensors only in diff mode.
+        self._keys = PLAN_KEYS + (ALT_KEYS if self.diff_mode else ())
         self.predictor = Predictor(model, batch_size=batch_size,
                                    device=device, dtype=dtype,
                                    fold_bn=fold_bn)
         self.batch_size = batch_size
         rows = o.height - o.reference_band_height
-        # Template zero plan for batch padding.
+        # Template zero plan for batch padding / stripped alt keys.
         self._zero_plan = {
             "bases": np.zeros((rows, o.width), np.uint8),
             "quals": np.zeros((rows, o.width), np.uint8),
@@ -90,24 +95,31 @@ class PlanPredictor:
             "af": np.zeros(rows, np.uint8),
             "row_valid": np.zeros(rows, bool),
             "ref_window": np.zeros(o.width, np.uint8),
+            "alt_bases": np.zeros((2, rows, o.width), np.uint8),
+            "alt_row_valid": np.zeros((2, rows), bool),
+            "alt_ref": np.zeros((2, o.width), np.uint8),
+            "alt_present": np.zeros(2, bool),
         }
 
     def stage(self, plans: List[dict]) -> dict:
-        """Stack B plan dicts, padded to batch_size, onto the device."""
+        """Stack B plan dicts, padded to batch_size, onto the device. A
+        key that a plan lacks (alt tensors stripped by `compact_plan`)
+        is staged as zeros."""
         padded = list(plans) + [self._zero_plan] * (
             self.batch_size - len(plans))
+        zero = self._zero_plan
         return self.predictor.stager.stage({
-            key: [np.asarray(p[key], self._zero_plan[key].dtype)
+            key: [np.asarray(p.get(key, zero[key]), zero[key].dtype)
                   for p in padded]
-            for key in PLAN_KEYS
+            for key in self._keys
         })
 
     @torch.inference_mode()
     def encode(self, plans: List[dict]) -> torch.Tensor:
-        """plans (<= batch_size dicts) -> (batch_size, H, W, 7) uint8
+        """plans (<= batch_size dicts) -> (batch_size, H, W, C) uint8
         images on the device, the padding included."""
         staged = self.stage(plans)
-        return self.encode_fn(*[staged[k] for k in PLAN_KEYS])
+        return self.encode_fn(*[staged[k] for k in self._keys])
 
     def _submit(self, plans: List[dict]) -> PendingResult:
         return PendingResult(self.predictor.forward(self.encode(plans)))

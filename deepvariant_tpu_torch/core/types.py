@@ -1,10 +1,13 @@
-"""The genomics records that stage 2 reads and writes.
+"""The genomics records that stage 2 and the pileup planners use.
 
-A copy of the subset of `deepvariant_tpu.core.types` that call_variants
-needs: Variant and VariantCall (nucleus variants.proto:52-170) and
+A copy of a subset of `deepvariant_tpu.core.types`. For call_variants:
+Variant and VariantCall (nucleus variants.proto:52-170) and
 CallVariantsOutput with its DebugInfo (deepvariant.proto:363-401), plus
 the info-map helpers they encode with. `encode` is byte-identical to the
 JAX package's, so the CVOs either package writes are interchangeable.
+For the in-memory `ReadBatch` and the planners: the CIGAR op codes,
+Range, and Read in its object form (its proto wire codec is not ported
+yet).
 """
 
 from __future__ import annotations
@@ -13,6 +16,92 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 from deepvariant_tpu_torch.core import protowire as pw
+
+# CIGAR operations (nucleus cigar.proto:34-93 enum values; same codes as
+# BAM spec order M=0.. when shifted by one: here we use the proto enum).
+CIGAR_ALIGNMENT_MATCH = 1  # M
+CIGAR_INSERT = 2  # I
+CIGAR_DELETE = 3  # D
+CIGAR_SKIP = 4  # N
+CIGAR_CLIP_SOFT = 5  # S
+CIGAR_CLIP_HARD = 6  # H
+CIGAR_PAD = 7  # P
+CIGAR_SEQUENCE_MATCH = 8  # =
+CIGAR_SEQUENCE_MISMATCH = 9  # X
+
+# BAM op code (0..8, spec order MIDNSHP=X) -> proto enum value.
+BAM_OP_TO_PROTO = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+PROTO_OP_TO_CHAR = {
+    1: "M", 2: "I", 3: "D", 4: "N", 5: "S", 6: "H", 7: "P", 8: "=", 9: "X",
+}
+CHAR_TO_PROTO_OP = {v: k for k, v in PROTO_OP_TO_CHAR.items()}
+
+# Ops that consume read bases / reference bases (SAM spec).
+OPS_CONSUME_READ = frozenset([1, 2, 5, 8, 9])
+OPS_CONSUME_REF = frozenset([1, 3, 4, 8, 9])
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class Range:
+    """0-based half-open genomic interval (nucleus range.proto:34-43)."""
+
+    reference_name: str
+    start: int
+    end: int
+
+    def __len__(self) -> int:
+        return max(0, self.end - self.start)
+
+    def overlaps(self, other: "Range") -> bool:
+        return (
+            self.reference_name == other.reference_name
+            and self.start < other.end
+            and other.start < self.end
+        )
+
+    def contains(self, other: "Range") -> bool:
+        return (
+            self.reference_name == other.reference_name
+            and self.start <= other.start
+            and other.end <= self.end
+        )
+
+    def to_region_string(self) -> str:
+        """1-based inclusive 'chr:start-end' string (samtools convention)."""
+        return f"{self.reference_name}:{self.start + 1}-{self.end}"
+
+    @staticmethod
+    def from_region_string(text: str) -> "Range":
+        if ":" not in text:
+            raise ValueError(f"region string without span: {text}")
+        name, span = text.rsplit(":", 1)
+        lo, _, hi = span.partition("-")
+        start = int(lo.replace(",", "")) - 1
+        end = int(hi.replace(",", "")) if hi else start + 1
+        return Range(name, start, end)
+
+    def encode(self) -> bytes:
+        out = []
+        if self.reference_name:
+            out.append(pw.field_string(1, self.reference_name))
+        if self.start:
+            out.append(pw.field_varint(2, self.start))
+        if self.end:
+            out.append(pw.field_varint(3, self.end))
+        return b"".join(out)
+
+    @staticmethod
+    def decode(buf: bytes) -> "Range":
+        name, start, end = "", 0, 0
+        for num, _, val in pw.iter_fields(buf):
+            if num == 1:
+                name = bytes(val).decode()
+            elif num == 2:
+                start = pw.varint_to_signed64(val)
+            elif num == 3:
+                end = pw.varint_to_signed64(val)
+        return Range(name, start, end)
+
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +311,41 @@ class Variant:
             elif num == 16:
                 v.start = pw.varint_to_signed64(val)
         return v
+
+
+# ---------------------------------------------------------------------------
+# Read (nucleus reads.proto:140-238) — object form, used at the edges only.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Read:
+    fragment_name: str = ""
+    aligned_sequence: str = ""
+    aligned_quality: bytes = b""
+    reference_name: str = ""
+    position: int = 0  # 0-based alignment start
+    mapping_quality: int = 0
+    cigar: List[tuple] = dataclasses.field(default_factory=list)  # (op, len)
+    reverse_strand: bool = False
+    read_number: int = 0
+    number_reads: int = 0
+    fragment_length: int = 0
+    proper_placement: bool = False
+    duplicate_fragment: bool = False
+    failed_vendor_quality_checks: bool = False
+    secondary_alignment: bool = False
+    supplementary_alignment: bool = False
+    next_mate_position: Optional[tuple] = None  # (ref_name, pos, reverse)
+    read_group: str = ""
+    info: Dict[str, List] = dataclasses.field(default_factory=dict)
+
+    def end(self) -> int:
+        """Reference end of the alignment (exclusive)."""
+        span = sum(l for op, l in self.cigar if op in OPS_CONSUME_REF)
+        return self.position + span
+
+    def cigar_string(self) -> str:
+        return "".join(f"{l}{PROTO_OP_TO_CHAR[op]}" for op, l in self.cigar)
 
 
 # ---------------------------------------------------------------------------

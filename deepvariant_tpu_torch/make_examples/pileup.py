@@ -1,8 +1,11 @@
-"""Pileup image options and channel constants.
+"""Pileup image options, channel constants and the planners' helpers.
 
-A copy of the constants and options of `deepvariant_tpu.make_examples.
-pileup` that stage 2 and the device plan painter need; the host encoder
-itself is not part of the port yet.
+A copy of what stage 2, the device encoders and their row planners need
+from `deepvariant_tpu.make_examples.pileup`: the constants and options,
+and of `PileupEncoder` the CIGAR walk, the support, allele-frequency and
+haplotype helpers and the read query. The host painter itself
+(`build_pileup`, `encode_read_row`, the opt channels) is not part of the
+port yet.
 
 Numerics contract (channels/channel.h:78 kMaxPixelValueAsFloat = 254):
 - read_base: A=40+70*3=250, G=40+70*2=180, T=30+70*1=100, C=30+70*0=30, else 0
@@ -13,12 +16,23 @@ Numerics contract (channels/channel.h:78 kMaxPixelValueAsFloat = 254):
   0.6 other-alt, 0.6 non-supporting; ref rows 0.6
 - base_differs_from_ref: match 0.2*254=50, mismatch 254; ref rows 50
 - insert_size: int(254 * min(|tlen|, 1000)/1000); ref rows 254
+- haplotype_tag: int(254 * hp/2), hp in {0,1,2}; ref rows 0
+CIGAR walk: M/=/X per-base; I single overwrite at anchor col (ref_i-1,
+only if ref_i > 0) with read_base '*'; D/N single overwrite at anchor
+(first-deleted-base - 1, only if read_i > 0) with read_base '*'; S, H
+and P paint nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from deepvariant_tpu_torch.io.bam import ReadBatch
+from deepvariant_tpu_torch.make_examples.variant_caller import DeepVariantCall
 
 MAX_PIXEL_FLOAT = 254.0
 
@@ -104,3 +118,166 @@ class PileupOptions:
     @property
     def max_reads(self) -> int:
         return self.height - self.reference_band_height
+
+
+def base_color_lut(opts: PileupOptions) -> np.ndarray:
+    """The 256-entry read_base color table of these options."""
+    lut = np.zeros(256, np.uint8)
+    lut[ord("A")] = opts.base_color_offset_a_and_g + opts.base_color_stride * 3
+    lut[ord("G")] = opts.base_color_offset_a_and_g + opts.base_color_stride * 2
+    lut[ord("T")] = opts.base_color_offset_t_and_c + opts.base_color_stride * 1
+    lut[ord("C")] = opts.base_color_offset_t_and_c + opts.base_color_stride * 0
+    return lut
+
+
+_OP_M, _OP_I, _OP_D, _OP_N, _OP_S = 1, 2, 3, 4, 5
+_OP_EQ, _OP_X = 8, 9
+
+
+class PileupEncoder:
+    """The planners' half of the host pileup encoder: options and the
+    per-read helpers that `pileup_device.build_region_tensors` and
+    `plan_candidate` call."""
+
+    def __init__(self, options: Optional[PileupOptions] = None):
+        self.options = options or PileupOptions()
+
+    def _read_supports_alt(
+        self,
+        dv_call: DeepVariantCall,
+        read_idx: int,
+        alt_alleles: Sequence[str],
+    ) -> int:
+        """0 = non-supporting, 1 = supports alt-in-image, 2 = other alt
+        (read_supports_variant_channel.cc:73-100)."""
+        for alt in dv_call.variant.alternate_bases:
+            ids = dv_call.allele_support.get(alt)
+            if ids and read_idx in ids:
+                return 1 if alt in alt_alleles else 2
+        return 0
+
+    def _hap_index(self, hp: int) -> int:
+        """Sort key from HP tag (pileup_image_native.cc:449-475)."""
+        o = self.options
+        if not o.sort_by_haplotypes:
+            return 0
+        if (
+            o.hp_tag_for_assembly_polishing > 0
+            and hp == o.hp_tag_for_assembly_polishing
+        ):
+            return -1
+        if o.reverse_haplotypes and hp in (1, 2):
+            hp = 3 - hp
+        return max(0, hp)
+
+    def _allele_frequency_color(self, allele_frequency: float) -> int:
+        """Log-scaled AF pixel (allele_frequency_channel.cc:78-86):
+        ((log10(min) - log10(af)) / log10(min)) * 254, min = 1e-5."""
+        min_af = self.options.min_non_zero_allele_frequency
+        if allele_frequency <= min_af:
+            return 0
+        log10_af = math.log10(allele_frequency)
+        log10_min = math.log10(min_af)
+        return int(((log10_min - log10_af) / log10_min) * MAX_PIXEL_FLOAT)
+
+    def _read_allele_frequency(
+        self,
+        dv_call: DeepVariantCall,
+        read_idx: int,
+        alt_alleles,
+    ) -> float:
+        """AF of the alt this read supports, if it is an alt-in-image
+        (ReadAlleleFrequency, allele_frequency_channel.cc:89-119)."""
+        for alt in dv_call.variant.alternate_bases:
+            ids = dv_call.allele_support.get(alt)
+            if ids and read_idx in ids and alt in alt_alleles:
+                return dv_call.allele_frequencies.get(alt, 0.0)
+        return 0.0
+
+    def _walk_events(self, batch, read_idx, image_start_pos, width):
+        cols, bases, quals, _ = self._walk_events_with_positions(
+            batch, read_idx, image_start_pos, width
+        )
+        return cols, bases, quals
+
+    def _walk_events_with_positions(
+        self, batch, read_idx, image_start_pos, width
+    ):
+        """CIGAR walk -> (cols, read_base_bytes, quals, read_positions)
+        in cigar order (pileup_channel_lib.cc:170-260); read_positions
+        index into the read sequence. Returns (None,)*4 on empty."""
+        co = batch.cigar_offsets
+        so = batch.seq_offsets
+        ops = batch.cigar_ops[co[read_idx] : co[read_idx + 1]]
+        lens = batch.cigar_lens[co[read_idx] : co[read_idx + 1]].astype(
+            np.int64
+        )
+        seq = batch.seq[so[read_idx] : so[read_idx + 1]]
+        qual = batch.qual[so[read_idx] : so[read_idx + 1]]
+        star = ord(self.options.indel_anchoring_base_char)
+
+        cols_l: List[np.ndarray] = []
+        bases_l: List[np.ndarray] = []
+        quals_l: List[np.ndarray] = []
+        rpos_l: List[np.ndarray] = []
+        ref_i = int(batch.pos[read_idx])
+        read_i = 0
+        for op, op_len in zip(ops, lens):
+            op_len = int(op_len)
+            if op in (_OP_M, _OP_EQ, _OP_X):
+                c = np.arange(ref_i, ref_i + op_len) - image_start_pos
+                ok = (c >= 0) & (c < width)
+                cols_l.append(c[ok])
+                bases_l.append(seq[read_i : read_i + op_len][ok])
+                quals_l.append(qual[read_i : read_i + op_len][ok])
+                rpos_l.append(
+                    np.arange(read_i, read_i + op_len)[ok]
+                )
+                ref_i += op_len
+                read_i += op_len
+            elif op in (_OP_I, _OP_S):
+                # INSERT paints the anchor base; CLIP_SOFT paints nothing
+                # (pileup_channel_lib.cc:130-143 leaves read_base 0 for
+                # CLIP_SOFT, so the `if (read_base && ...)` guard skips it).
+                if op == _OP_I and ref_i > 0:
+                    c = ref_i - 1 - image_start_pos
+                    if 0 <= c < width:
+                        cols_l.append(np.array([c]))
+                        bases_l.append(np.array([star], np.uint8))
+                        quals_l.append(np.array([qual[read_i]]))
+                        rpos_l.append(np.array([read_i]))
+                read_i += op_len
+            elif op in (_OP_D, _OP_N):
+                if read_i > 0:
+                    c = ref_i - 1 - image_start_pos
+                    if 0 <= c < width:
+                        cols_l.append(np.array([c]))
+                        bases_l.append(np.array([star], np.uint8))
+                        quals_l.append(
+                            np.array([qual[read_i - 1]])
+                        )
+                        rpos_l.append(np.array([read_i - 1]))
+                ref_i += op_len
+            # CLIP_HARD / PAD: ignored.
+        if not cols_l:
+            return None, None, None, None
+        cols = np.concatenate(cols_l).astype(np.int64)
+        if len(cols) == 0:
+            return None, None, None, None
+        return (
+            cols,
+            np.concatenate(bases_l),
+            np.concatenate(quals_l),
+            np.concatenate(rpos_l).astype(np.int64),
+        )
+
+
+def reads_overlapping_variant(
+    batch: ReadBatch, variant, buffer_bp: int = 5
+) -> np.ndarray:
+    """Indices of reads overlapping [start - buffer, end + buffer)
+    (read selection in CreateAndWriteExamplesForCandidate :643-648)."""
+    lo = variant.start - buffer_bp
+    hi = variant.end + buffer_bp
+    ends = batch.reference_ends()
+    return np.nonzero((batch.pos < hi) & (ends > lo))[0]

@@ -7,16 +7,37 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepvariant_tpu")
+
+# Every module of the port; the subprocess below imports each and the
+# scan reads each one's source.
+MODULES = tuple("deepvariant_tpu_torch." + name for name in (
+    "device",
+    "calling.call_variants", "calling.cvo_writer", "calling.plan_predictor",
+    "core.cigar", "core.genomics_math", "core.protowire",
+    "core.sharded_files", "core.types",
+    "io.bam", "io.examples", "io.flax_msgpack", "io.tfrecord",
+    "make_examples.pileup", "make_examples.pileup_device",
+    "make_examples.presets", "make_examples.shuffle",
+    "make_examples.variant_caller",
+    "models.checkpoint", "models.inception_v3",
+    "ops._build", "ops.pileup_paint",
+    "scripts.call_variants",
+))
 
 _SCRIPT = r"""
 import importlib, os, pkgutil, sys, tempfile
 import numpy as np
 import deepvariant_tpu_torch
-for info in pkgutil.walk_packages(deepvariant_tpu_torch.__path__,
-                                  "deepvariant_tpu_torch."):
-    importlib.import_module(info.name)
+names = [info.name for info in pkgutil.walk_packages(
+    deepvariant_tpu_torch.__path__, "deepvariant_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+missing = set(%r) - set(names)
+assert not missing, missing
 from deepvariant_tpu_torch.core.types import Variant
 from deepvariant_tpu_torch.io import examples
 from deepvariant_tpu_torch.io.tfrecord import TFRecordWriter
@@ -43,7 +64,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
 print("clean")
-""" % (FORBIDDEN,)
+""" % (MODULES, FORBIDDEN)
 
 
 def test_port_runs_without_importing_jax():
@@ -66,11 +87,16 @@ def _imports(path):
             yield node.module
 
 
-def test_no_source_file_names_a_forbidden_module():
+def test_module_list_is_complete():
     files = glob.glob(os.path.join(REPO, "deepvariant_tpu_torch", "**",
                                    "*.py"), recursive=True)
-    files.append(os.path.join(REPO, "chip_smoke.py"))
-    assert len(files) > 15
-    for path in files:
-        for name in _imports(path):
-            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+    found = {os.path.relpath(f, REPO)[:-3].replace(os.sep, ".")
+             for f in files if not f.endswith("__init__.py")}
+    assert found == set(MODULES)
+
+
+@pytest.mark.parametrize("module", MODULES + ("chip_smoke",))
+def test_no_source_file_names_a_forbidden_module(module):
+    path = os.path.join(REPO, *module.split(".")) + ".py"
+    for name in _imports(path):
+        assert name.split(".")[0] not in FORBIDDEN, (path, name)

@@ -74,17 +74,165 @@ def edge_plans(plans):
     return plans
 
 
+def with_alt(plans, seed):
+    """Add the alt tensors of diff mode to stacked plans, in place: alt
+    bases with '*' and uncovered columns, invalid alt rows, and
+    alt_present in all four combinations (from n = 4 on)."""
+    rng = np.random.RandomState(seed)
+    n, rows, width = plans["bases"].shape
+    alphabet = np.frombuffer(b"ACGTN*", np.uint8)
+    alt_bases = alphabet[rng.randint(0, 6, (n, 2, rows, width))]
+    alt_bases[rng.rand(n, 2, rows, width) < 0.3] = 0
+    present = np.array([[1, 1], [0, 1], [1, 0], [0, 0]], bool)
+    plans.update({
+        "alt_bases": alt_bases,
+        "alt_row_valid": rng.rand(n, 2, rows) < 0.8,
+        "alt_ref": alphabet[rng.randint(0, 5, (n, 2, width))],
+        "alt_present": present[np.arange(n) % 4],
+    })
+    return plans
+
+
+def edge_hp(plans):
+    """Put hp tags outside 0..2 into stacked plans, in place, on valid
+    rows of the second candidate."""
+    hp = [-128, -1, 3, 127, 1, 2][:plans["hp"].shape[1]]
+    plans["hp"][1, :len(hp)] = hp
+    plans["row_valid"][1, :len(hp)] = True
+    return plans
+
+
 def jax_images(plans, options):
-    """The JAX package's long-read encoder on stacked plans (no alt
-    planes): (N, band + R, W, C) uint8."""
+    """The JAX package's long-read encoder on stacked plans: (N, band +
+    R, W, C) uint8. Plans without the alt tensors get zero ones, which
+    the encoder reads only in diff mode."""
     from deepvariant_tpu.make_examples.pileup_jax import (
         make_longread_encode_fn,
     )
-    from deepvariant_tpu_torch.calling.plan_predictor import PLAN_KEYS
+    from deepvariant_tpu_torch.calling.plan_predictor import (
+        ALT_KEYS,
+        PLAN_KEYS,
+    )
 
     n, rows, width = plans["bases"].shape
-    alt = (np.zeros((n, 2, rows, width), np.uint8),
-           np.zeros((n, 2, rows), bool), np.zeros((n, 2, width), np.uint8),
-           np.zeros((n, 2), bool))
+    zero_alt = dict(zip(ALT_KEYS, (
+        np.zeros((n, 2, rows, width), np.uint8),
+        np.zeros((n, 2, rows), bool), np.zeros((n, 2, width), np.uint8),
+        np.zeros((n, 2), bool))))
     encode = make_longread_encode_fn(options)
-    return np.asarray(encode(*[plans[k] for k in PLAN_KEYS], *alt))
+    return np.asarray(encode(*[plans[k] for k in PLAN_KEYS],
+                             *[plans.get(k, zero_alt[k]) for k in ALT_KEYS]))
+
+
+# Non-default values of every color option and cap of PileupOptions.
+ODD_COLORS = dict(
+    base_color_offset_a_and_g=33, base_color_offset_t_and_c=21,
+    base_color_stride=55, allele_supporting_read_alpha=0.95,
+    allele_unsupporting_read_alpha=0.45,
+    other_allele_supporting_read_alpha=0.7,
+    reference_matching_read_alpha=0.3,
+    reference_mismatching_read_alpha=0.9, reference_base_quality=33,
+    positive_strand_color=11, negative_strand_color=222,
+    base_quality_cap=37, mapping_quality_cap=51,
+    hp_tag_for_assembly_polishing=2)
+
+_CIGARS = ("60M", "20M2I38M", "5S25M3D30M", "30M40N30M", "3H57M2S",
+           "10M1I10M1D10M5N29M", "2S1M", "15M4D15M2I15M3H")
+
+
+def synthetic_region(seed, n_reads=80, span=400):
+    """A seeded region of reads and candidates as plain Python values,
+    for `build_region` to turn into either package's objects.
+
+    Reads: CIGARs with M, I, D, S, N and H, both strands, paired and
+    unpaired, read names shared by mates, HP tags 0..2 and one 3,
+    supplementary flags, mapq and base qualities below and above the
+    pileup's thresholds. Candidates: four SNP/insertion sites, the first
+    and last so close to the reference's ends that their windows hang
+    off it. Returns (reference bytes, read field dicts, candidate dicts)."""
+    rng = np.random.RandomState(seed)
+    reference = np.frombuffer(b"ACGT", np.uint8)[rng.randint(0, 4, span)]
+    reads = []
+    for i in range(n_reads):
+        cigar = _CIGARS[i % len(_CIGARS)]
+        paired = bool(i % 3)
+        reads.append(dict(
+            fragment_name=f"read{i // 2:03d}",
+            cigar=cigar,
+            position=int(rng.randint(0, span - 120)),
+            seed=int(rng.randint(1 << 30)),
+            mapping_quality=int(rng.randint(0, 71)),
+            reverse_strand=bool(rng.randint(2)),
+            read_number=i % 2 if paired else 0,
+            number_reads=2 if paired else 1,
+            fragment_length=int(rng.randint(-1500, 1500)),
+            supplementary_alignment=i % 7 == 0,
+            proper_placement=paired and i % 5 != 0,
+            next_mate_position=("chr1", int(rng.randint(0, span)),
+                                bool(rng.randint(2))) if paired else None,
+            hp=3 if i == 11 else int(rng.randint(0, 3)),
+        ))
+    candidates = []
+    for start in (5, 130, 200, span - 10):
+        picked = rng.permutation(n_reads)
+        candidates.append(dict(
+            start=start,
+            alts=["C", "AT"],
+            allele_support={"C": sorted(picked[:15].tolist()),
+                            "AT": sorted(picked[15:25].tolist()),
+                            "G": sorted(picked[25:28].tolist())},
+            allele_frequencies={"C": 0.31, "AT": 0.002},
+            combo=["C", "AT"] if len(candidates) % 2 else ["C"],
+        ))
+    return reference, reads, candidates
+
+
+def build_region(package, reads, candidates):
+    """(ReadBatch, [DeepVariantCall], [alt combo]) of `synthetic_region`'s
+    values in one package's classes; `package` is "deepvariant_tpu" or
+    "deepvariant_tpu_torch"."""
+    import importlib
+
+    def module(name):
+        return importlib.import_module(f"{package}.{name}")
+
+    types, cigar, bam = module("core.types"), module("core.cigar"), \
+        module("io.bam")
+    caller = module("make_examples.variant_caller")
+    objects = []
+    for r in reads:
+        units = cigar.parse_cigar_string(r["cigar"])
+        length = cigar.read_span(units)
+        rng = np.random.RandomState(r["seed"])
+        objects.append(types.Read(
+            fragment_name=r["fragment_name"],
+            aligned_sequence="".join(
+                "ACGT"[b] for b in rng.randint(0, 4, length)),
+            aligned_quality=bytes(rng.randint(0, 61, length).tolist()),
+            reference_name="chr1", position=r["position"],
+            mapping_quality=r["mapping_quality"], cigar=units,
+            reverse_strand=r["reverse_strand"],
+            read_number=r["read_number"], number_reads=r["number_reads"],
+            fragment_length=r["fragment_length"],
+            proper_placement=r["proper_placement"],
+            supplementary_alignment=r["supplementary_alignment"],
+            next_mate_position=r["next_mate_position"],
+            info={"HP": [r["hp"]]} if r["hp"] else {}))
+    batch = bam.ReadBatch.from_reads(objects, ["chr1", "chr2"])
+    calls = [caller.DeepVariantCall(
+        variant=types.Variant(
+            reference_name="chr1", start=c["start"], end=c["start"] + 1,
+            reference_bases="A", alternate_bases=list(c["alts"])),
+        allele_support={k: list(v) for k, v in c["allele_support"].items()},
+        allele_frequencies=dict(c["allele_frequencies"]))
+        for c in candidates]
+    return batch, calls, [list(c["combo"]) for c in candidates]
+
+
+def reference_window(reference, options, variant):
+    """The (W,) uint8 pileup reference window of `variant`, N where it
+    hangs off the reference."""
+    cols = np.arange(options.width) + variant.start - options.half_width
+    window = reference[np.clip(cols, 0, len(reference) - 1)].copy()
+    window[(cols < 0) | (cols >= len(reference))] = ord("N")
+    return window
