@@ -13,8 +13,7 @@ the image has two more planes, so the model must take
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Iterable, Iterator, List, Optional, Tuple, Union
+from typing import Iterable, Iterator, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,7 +23,10 @@ from deepvariant_tpu_torch.calling.call_variants import (
     Predictor,
     predict_in_order,
 )
-from deepvariant_tpu_torch.core.types import Variant
+# PlannedExample stays importable from here, as in the JAX package.
+from deepvariant_tpu_torch.make_examples.examples_builder import (  # noqa: F401
+    PlannedExample,
+)
 from deepvariant_tpu_torch.make_examples.pileup import PileupOptions
 from deepvariant_tpu_torch.make_examples.pileup_device import (
     ALT_KEYS,
@@ -40,18 +42,6 @@ def compact_plan(plan: dict, diff_mode: bool) -> dict:
     if diff_mode:
         return plan
     return {k: v for k, v in plan.items() if k not in ALT_KEYS}
-
-
-@dataclasses.dataclass
-class PlannedExample:
-    """Device-encode payload for one (candidate, alt-combo) example; the
-    same fields as `PlannedExample` in the JAX package's make_examples."""
-
-    plan: dict
-    variant: Variant
-    alt_indices: List[int]
-    variant_type: int
-    label: Optional[int] = None
 
 
 class PlanPredictor:
