@@ -31,6 +31,17 @@ def sharded_filename(basename: str, shard: int, num_shards: int,
     return f"{basename}-{shard:0{width}d}-of-{num_shards:0{width}d}{suffix}"
 
 
+def maybe_sharded_output_path(spec: str, task_id: int) -> str:
+    """Resolve the path this task should write ('base@N' -> its shard)."""
+    parsed = parse_sharded_file_spec(spec)
+    if parsed is None:
+        return spec
+    base, n, suffix = parsed
+    if not 0 <= task_id < n:
+        raise ValueError(f"task {task_id} out of range for {spec}")
+    return sharded_filename(base, task_id, n, suffix)
+
+
 def glob_sharded_inputs(spec: str) -> List[str]:
     """Expand an input spec: '@N' form, a real sharded family on disk,
     a glob, or a single path."""

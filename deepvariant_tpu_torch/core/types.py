@@ -1,13 +1,15 @@
-"""The genomics records that stage 2 and the pileup planners use.
+"""Core genomics data model.
 
-A copy of a subset of `deepvariant_tpu.core.types`. For call_variants:
-Variant and VariantCall (nucleus variants.proto:52-170) and
-CallVariantsOutput with its DebugInfo (deepvariant.proto:363-401), plus
-the info-map helpers they encode with. `encode` is byte-identical to the
-JAX package's, so the CVOs either package writes are interchangeable.
-For the in-memory `ReadBatch` and the planners: the CIGAR op codes,
-Range, and Read in its object form (its proto wire codec is not ported
-yet).
+The port's copy of `deepvariant_tpu.core.types`: plain dataclasses for
+the control-plane objects (Range, ContigInfo, Variant, VariantCall, Read,
+CallVariantsOutput with its DebugInfo) and wire codecs compatible with
+the reference's serialized contracts (nucleus variants.proto,
+reads.proto, range.proto; deepvariant.proto CallVariantsOutput).
+`encode` is byte-identical to the JAX package's, so the candidates and
+CVOs either package writes are interchangeable.
+
+The hot path does not use the per-object types: reads flow through the
+pipeline as the columnar `ReadBatch` (io/bam.py).
 """
 
 from __future__ import annotations
@@ -102,6 +104,14 @@ class Range:
                 end = pw.varint_to_signed64(val)
         return Range(name, start, end)
 
+
+@dataclasses.dataclass
+class ContigInfo:
+    """Reference contig metadata (nucleus reference.proto ContigInfo)."""
+
+    name: str
+    n_bases: int
+    pos_in_fasta: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +267,15 @@ class Variant:
     calls: List[VariantCall] = dataclasses.field(default_factory=list)
     id: str = ""
 
+    @property
+    def range(self) -> Range:
+        return Range(self.reference_name, self.start, self.end)
+
+    def is_snp(self) -> bool:
+        return len(self.reference_bases) == 1 and all(
+            len(a) == 1 for a in self.alternate_bases
+        ) and bool(self.alternate_bases)
+
     def encode(self) -> bytes:
         out = []
         if self.id:
@@ -347,6 +366,120 @@ class Read:
     def cigar_string(self) -> str:
         return "".join(f"{l}{PROTO_OP_TO_CHAR[op]}" for op, l in self.cigar)
 
+    def encode(self) -> bytes:
+        """nucleus Read proto wire format (reads.proto:140-238)."""
+        out = []
+        if self.fragment_name:
+            out.append(pw.field_string(4, self.fragment_name))
+        if self.proper_placement:
+            out.append(pw.field_bool(5, True))
+        if self.duplicate_fragment:
+            out.append(pw.field_bool(6, True))
+        if self.fragment_length:
+            out.append(pw.field_varint(7, self.fragment_length
+                                       & 0xFFFFFFFFFFFFFFFF
+                                       if self.fragment_length < 0
+                                       else self.fragment_length))
+        if self.read_number:
+            out.append(pw.field_varint(8, self.read_number))
+        if self.number_reads:
+            out.append(pw.field_varint(9, self.number_reads))
+        if self.failed_vendor_quality_checks:
+            out.append(pw.field_bool(10, True))
+        aln = []
+        pos = []
+        if self.reference_name:
+            pos.append(pw.field_string(1, self.reference_name))
+        if self.position:
+            pos.append(pw.field_varint(2, self.position))
+        if self.reverse_strand:
+            pos.append(pw.field_bool(3, True))
+        aln.append(pw.field_message(1, b"".join(pos)))
+        if self.mapping_quality:
+            aln.append(pw.field_varint(2, self.mapping_quality))
+        for op, length in self.cigar:
+            unit = pw.field_varint(1, op) + pw.field_varint(2, length)
+            aln.append(pw.field_message(3, unit))
+        out.append(pw.field_message(11, b"".join(aln)))
+        if self.secondary_alignment:
+            out.append(pw.field_bool(12, True))
+        if self.supplementary_alignment:
+            out.append(pw.field_bool(13, True))
+        if self.aligned_sequence:
+            out.append(pw.field_string(14, self.aligned_sequence))
+        if self.aligned_quality:
+            out.append(pw.field_bytes(15, bytes(self.aligned_quality)))
+        if self.next_mate_position is not None:
+            name, p, rev = self.next_mate_position
+            mate = pw.field_string(1, name) + pw.field_varint(2, p)
+            if rev:
+                mate += pw.field_bool(3, True)
+            out.append(pw.field_message(16, mate))
+        if self.info:
+            out.append(encode_info_map(17, self.info))
+        return b"".join(out)
+
+    @staticmethod
+    def decode(buf) -> "Read":
+        r = Read()
+        for num, wt, val in pw.iter_fields(buf):
+            if num == 4:
+                r.fragment_name = bytes(val).decode()
+            elif num == 5:
+                r.proper_placement = bool(val)
+            elif num == 6:
+                r.duplicate_fragment = bool(val)
+            elif num == 7:
+                r.fragment_length = _varint32(val)
+            elif num == 8:
+                r.read_number = _varint32(val)
+            elif num == 9:
+                r.number_reads = _varint32(val)
+            elif num == 10:
+                r.failed_vendor_quality_checks = bool(val)
+            elif num == 11:
+                for anum, _, aval in pw.iter_fields(val):
+                    if anum == 1:
+                        for pnum, _, pval in pw.iter_fields(aval):
+                            if pnum == 1:
+                                r.reference_name = bytes(pval).decode()
+                            elif pnum == 2:
+                                r.position = pw.varint_to_signed64(pval)
+                            elif pnum == 3:
+                                r.reverse_strand = bool(pval)
+                    elif anum == 2:
+                        r.mapping_quality = _varint32(aval)
+                    elif anum == 3:
+                        op, length = 0, 0
+                        for cnum, _, cval in pw.iter_fields(aval):
+                            if cnum == 1:
+                                op = cval
+                            elif cnum == 2:
+                                length = pw.varint_to_signed64(cval)
+                        r.cigar.append((op, length))
+            elif num == 12:
+                r.secondary_alignment = bool(val)
+            elif num == 13:
+                r.supplementary_alignment = bool(val)
+            elif num == 14:
+                r.aligned_sequence = bytes(val).decode()
+            elif num == 15:
+                r.aligned_quality = bytes(val)
+            elif num == 16:
+                name, p, rev = "", 0, False
+                for pnum, _, pval in pw.iter_fields(val):
+                    if pnum == 1:
+                        name = bytes(pval).decode()
+                    elif pnum == 2:
+                        p = pw.varint_to_signed64(pval)
+                    elif pnum == 3:
+                        rev = bool(pval)
+                r.next_mate_position = (name, p, rev)
+            elif num == 17:
+                k, v = decode_info_entry(val)
+                r.info[k] = v
+        return r
+
 
 # ---------------------------------------------------------------------------
 # CallVariantsOutput (deepvariant.proto:363-401)
@@ -407,7 +540,7 @@ class CallVariantsOutput:
     variant: Variant
     alt_allele_indices: List[int]
     genotype_probabilities: List[float]
-    debug_info: Optional[CvoDebugInfo] = None
+    debug_info: Optional["CvoDebugInfo"] = None
 
     def encode(self) -> bytes:
         out = [pw.field_message(1, self.variant.encode())]

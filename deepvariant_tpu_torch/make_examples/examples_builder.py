@@ -1,9 +1,14 @@
-"""Assemble pileup tf.Examples for candidates (ExamplesGenerator parity).
+"""Candidates to device-encode plans (ExamplesGenerator parity).
 
-Mirrors make_examples_native.cc: AltAlleleCombinations (:191-268),
-GetReferenceBasesForPileup (:516-540, N-padding at contig edges),
-CreateAndWriteExamplesForCandidate (:632-720, read-overlap window selection),
-EncodeExample feature schema (:388-470).
+The port's copy of `deepvariant_tpu.make_examples.examples_builder`,
+which mirrors make_examples_native.cc: AltAlleleCombinations (:191-268),
+GetReferenceBasesForPileup (:516-540, N-padding at contig edges) and
+CreateAndWriteExamplesForCandidate (:632-720, read-overlap window
+selection). Ported: the plan path (`build_plans_for_candidate`), whose
+painting runs on the card. Not ported, and raising: the host painter
+(`build_examples_for_candidate`) and the trimmed-read and alt-aligned
+branches, which need `alt_aligned.py` and the FastPassAligner
+(ROADMAP.md Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -14,7 +19,6 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from deepvariant_tpu_torch.core.types import Range, Variant
-from deepvariant_tpu_torch.io import examples as example_codec
 from deepvariant_tpu_torch.io.bam import ReadBatch
 from deepvariant_tpu_torch.make_examples.pileup import (
     PileupEncoder,
@@ -27,6 +31,12 @@ from deepvariant_tpu_torch.make_examples.variant_caller import DeepVariantCall
 VARIANT_TYPE_UNKNOWN = 0
 VARIANT_TYPE_SNP = 1
 VARIANT_TYPE_INDEL = 2
+
+_ALT_ALIGNED_NOT_PORTED = (
+    "trimmed-read and alt-aligned pileups (alt_aligned.py, the "
+    "FastPassAligner) are not ported; ROADMAP.md Queue 1 item 3 "
+    "(alt_aligned.py and the long-read planner's diff branch)"
+)
 
 
 def encoded_variant_type(variant: Variant) -> int:
@@ -84,7 +94,7 @@ class BuiltExample:
 class PlannedExample:
     """Device-encode payload for one (candidate, alt-combo) example.
 
-    `plan` holds the pileup_jax row tensors (host-side planning done,
+    `plan` holds the pileup_device row tensors (host-side planning done,
     painting deferred to the device); crosses the stream-pipeline
     worker queue instead of a host-painted image
     (reference fast_pipeline shm analog, stream_examples_kernel.cc)."""
@@ -94,3 +104,189 @@ class PlannedExample:
     alt_indices: List[int]
     variant_type: int
     label: Optional[int] = None
+
+
+class ExamplesBuilder:
+    """Builds tf.Examples for the candidates of one region."""
+
+    def __init__(
+        self,
+        ref_reader,
+        pileup_options: Optional[PileupOptions] = None,
+        sequencing_type: int = 0,
+        trim_reads_for_pileup: bool = False,
+    ):
+        self.ref = ref_reader
+        self.pileup_options = pileup_options or PileupOptions()
+        self.encoder = PileupEncoder(self.pileup_options)
+        self.sequencing_type = sequencing_type
+        self.trim_reads_for_pileup = trim_reads_for_pileup
+
+    def reference_window(self, variant: Variant) -> Optional[np.ndarray]:
+        """Pileup-width ref bases centered at variant.start, N-padded at
+        contig edges (GetReferenceBasesForPileup)."""
+        o = self.pileup_options
+        start = variant.start - o.half_width
+        end = start + o.width
+        n_bases = self.ref.contig_length(variant.reference_name)
+        lo = max(0, start)
+        hi = min(n_bases, end)
+        if lo >= hi:
+            return None
+        bases = self.ref.bases(Range(variant.reference_name, lo, hi))
+        if start < 0 or end > n_bases:
+            out = np.full(o.width, ord("N"), np.uint8)
+            out[lo - start : lo - start + len(bases)] = bases
+            return out
+        return bases
+
+    def need_alt_alignment(self, variant: Variant) -> bool:
+        """NeedAltAlignment (make_examples_native.cc:500-512)."""
+        o = self.pileup_options
+        if o.alt_aligned_pileup == "none" or not o.alt_aligned_pileup:
+            return False
+        if o.types_to_alt_align == "all":
+            return True
+        if o.types_to_alt_align == "indels":
+            return len(variant.reference_bases) > 1 or any(
+                len(a) > 1 for a in variant.alternate_bases
+            )
+        return False
+
+    def iter_alt_batches(
+        self,
+        dv_call: DeepVariantCall,
+        batch: ReadBatch,
+        combo: Sequence[str],
+        sort_positions=None,
+    ):
+        """Per-alt realigned inputs for alt-aligned pileups: not ported."""
+        raise NotImplementedError(_ALT_ALIGNED_NOT_PORTED)
+
+    def prepare_candidate_batch(
+        self,
+        dv_call: DeepVariantCall,
+        batch: ReadBatch,
+    ):
+        """Candidate-local read set: trimming + support remapping.
+
+        Trimmed-read pileup is engaged by --trim_reads_for_pileup OR
+        whenever the variant needs alt alignment (use_trimmed_reads,
+        make_examples_native.cc:655-658). Reads are trimmed to the
+        alignment region (TrimReads, alt_aligned_pileup_lib.cc:250-268;
+        min_overlap 15), support indices are remapped, and rows keep
+        sorting by the reads' ORIGINAL alignment positions. The
+        reference builds the trimmed read set from a query of variant
+        +/- read_overlap_buffer_bp (make_examples_native.cc:644-648),
+        so window reads that don't overlap the variant never reach the
+        trimmed/alt-aligned pileups.
+
+        Returns (dv_call, batch, read_indices, sort_positions); shared
+        by the host painter and the device long-read encoder
+        (pileup_device.encode_longread_examples).
+        """
+        variant = dv_call.variant
+        read_indices = reads_overlapping_variant(
+            batch, variant, self.pileup_options.read_overlap_buffer_bp
+        )
+        needs_alt = self.need_alt_alignment(variant)
+        sort_positions = None
+        if (self.trim_reads_for_pileup or needs_alt) and len(batch):
+            raise NotImplementedError(_ALT_ALIGNED_NOT_PORTED)
+        return dv_call, batch, read_indices, sort_positions
+
+    def build_examples_for_candidate(
+        self,
+        dv_call: DeepVariantCall,
+        batch: ReadBatch,
+        label_fn=None,
+        allowed_alt_index_sets=None,
+    ) -> Iterator[BuiltExample]:
+        """Host-painted tf.Examples: needs the host painter, not ported."""
+        raise NotImplementedError(
+            "the host painter (build_pileup, encode_read_row) is not "
+            "ported, so examples are built only as device-encode plans "
+            "(build_plans_for_candidate); ROADMAP.md Queue 1 item 3 (the "
+            "host painter)")
+
+    def supports_device_encode(self) -> bool:
+        """True when this channel/alt-mode config can be painted by the
+        device encoder (pileup_device.make_longread_encode_fn)."""
+        from deepvariant_tpu_torch.make_examples.pileup_device import (
+            DEVICE_CHANNELS,
+        )
+
+        o = self.pileup_options
+        return (
+            all(ch in DEVICE_CHANNELS for ch in o.channels)
+            and o.alt_aligned_pileup in ("", "none", "diff_channels")
+        )
+
+    def build_plans_for_candidate(
+        self,
+        dv_call: DeepVariantCall,
+        batch: ReadBatch,
+        label_fn=None,
+        allowed_alt_index_sets=None,
+    ) -> Iterator[PlannedExample]:
+        """Device-encode twin of build_examples_for_candidate: the same
+        candidate/combo loop, but each example's host work stops after
+        row planning (pileup_device.plan_longread_example); the channel
+        painting runs later on the card, one launch of the paint kernel
+        per batch, before the CNN forward."""
+        from deepvariant_tpu_torch.make_examples import pileup_device
+
+        variant = dv_call.variant
+        alt_index = {a: i for i, a in enumerate(variant.alternate_bases)}
+        for combo in alt_allele_combinations(
+            variant, self.pileup_options.multi_allelic_mode,
+            allowed_alt_index_sets=allowed_alt_index_sets,
+        ):
+            plan = pileup_device.plan_longread_example(
+                self, dv_call, batch, combo
+            )
+            if plan is None:
+                # Reference window unavailable (contig edge):
+                # build_examples_for_candidate emits nothing either.
+                return
+            indices = sorted(
+                alt_index[a] for a in combo if a in alt_index
+            )
+            label = None
+            if label_fn is not None:
+                label = label_fn(variant, indices)
+            yield PlannedExample(
+                plan=plan,
+                variant=variant,
+                alt_indices=indices,
+                variant_type=encoded_variant_type(variant),
+                label=label,
+            )
+
+    def example_shape(self) -> Tuple[int, int, int]:
+        """Final tensor shape incl. alt-aligned composition
+        (CalculatePileupImageHeight, pileup_image_native.cc:220-240)."""
+        o = self.pileup_options
+        h, w, c = o.height, o.width, len(o.channels)
+        mode = o.alt_aligned_pileup
+        if mode in ("diff_channels", "base_channels"):
+            c += 2
+        elif mode == "rows":
+            h *= 3
+        elif mode == "single_row":
+            h *= 2
+        return (h, w, c)
+
+    # DeepVariantChannelEnum values for the alt-aligned planes
+    # (deepvariant.proto:1308-1313).
+    _ALT_CHANNEL_ENUMS = {
+        "diff_channels": [9, 10],
+        "base_channels": [20, 21],
+    }
+
+    def channel_enums(self) -> List[int]:
+        enums = list(self.pileup_options.channels)
+        enums += self._ALT_CHANNEL_ENUMS.get(
+            self.pileup_options.alt_aligned_pileup, []
+        )
+        return enums

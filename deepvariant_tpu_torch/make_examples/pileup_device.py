@@ -16,10 +16,10 @@ Two encoders share the painter:
 - `make_encode_fn`: over a region's (K, Wr) read tensors, gathering each
   candidate's rows and window on the device first. It has no diff mode.
 
-`plan_longread_example`, which needs the host stage's candidate
-preparation, the realigner's trimming and the alt-haplotype aligner, is
-not ported yet (ROADMAP.md); `encode_longread_examples` takes plans made
-elsewhere.
+`plan_longread_example` makes one example's plan from a candidate and
+its reads. With `alt_aligned_pileup` off its alt tensors are zeros; the
+'diff_channels' branch for a variant that needs alt alignment waits for
+the alt-haplotype aligner (`alt_aligned.py`) and raises.
 """
 
 from __future__ import annotations
@@ -500,6 +500,52 @@ def encode_region_candidates(
         np.stack([p.ref_window for p in plans]),
     ], device))
     return out.cpu().numpy()
+
+
+def plan_longread_example(
+    builder,
+    dv_call: DeepVariantCall,
+    batch: ReadBatch,
+    combo: Sequence[str],
+) -> Optional[dict]:
+    """Host planning for one (candidate, alt-combo) example.
+
+    Runs the row-selection path and returns the gathered input dict for
+    make_longread_encode_fn, or None when the reference window is
+    unavailable. `builder` is the ExamplesBuilder (reference window,
+    candidate preparation)."""
+    encoder = builder.encoder
+    o = encoder.options
+    variant = dv_call.variant
+    ref_window = builder.reference_window(variant)
+    if ref_window is None or len(ref_window) != o.width:
+        return None
+    dv_call, batch, read_indices, sort_positions = \
+        builder.prepare_candidate_batch(dv_call, batch)
+    image_start = variant.start - o.half_width
+    tensors = build_region_tensors(
+        encoder, batch, image_start, image_start + o.width
+    )
+    plan = plan_candidate(
+        encoder, tensors, dv_call, batch, combo, ref_window,
+        read_indices=read_indices, sort_positions=sort_positions,
+    )
+    rows = gather_plan_rows(tensors, plan, o.width)
+    rows["ref_window"] = np.asarray(ref_window, np.uint8)
+
+    if o.alt_aligned_pileup == "diff_channels" and \
+            builder.need_alt_alignment(variant):
+        raise NotImplementedError(
+            "the alt-aligned planes of a plan need alt_aligned.py and the "
+            "FastPassAligner, which are not ported; ROADMAP.md Queue 1 "
+            "item 3 (alt_aligned.py and the long-read planner's diff "
+            "branch)")
+    r = o.max_reads
+    rows["alt_bases"] = np.zeros((2, r, o.width), np.uint8)
+    rows["alt_row_valid"] = np.zeros((2, r), bool)
+    rows["alt_ref"] = np.zeros((2, o.width), np.uint8)
+    rows["alt_present"] = np.zeros(2, bool)
+    return rows
 
 
 def encode_longread_examples(
