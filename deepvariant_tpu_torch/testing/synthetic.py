@@ -290,18 +290,18 @@ def write_fasta(sample: dict, path: str, line_bases: int = 60) -> str:
     return path
 
 
-def bgzip_with_gzi(src: str, dst: str, bgzf_module) -> str:
+def bgzip_with_gzi(src: str, dst: str, bgzf_module,
+                   block_bytes: int = 2000) -> str:
     """`src` as BGZF at `dst`, with `dst`.gzi (the offsets of every
     block after the first, as htslib's bgzip -i writes them) and a copy
     of `src`.fai."""
     with open(src, "rb") as f:
         data = f.read()
     with bgzf_module.BgzfWriter(dst) as w:
-        # Small writes, so that the file has many blocks.
-        for i in range(0, len(data), 4000):
-            w.write(data[i:i + 4000])
-            if i % 16000 == 0:
-                w.flush()
+        # One small block per write, so that the file has many blocks.
+        for i in range(0, len(data), block_bytes):
+            w.write(data[i:i + block_bytes])
+            w.flush()
     entries = []
     coff = uoff = 0
     with open(dst, "rb") as f:

@@ -17,15 +17,22 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepvariant_tpu")
 MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "device",
     "calling.call_variants", "calling.cvo_writer", "calling.plan_predictor",
-    "core.cigar", "core.genomics_math", "core.protowire",
+    "core.cigar", "core.genomics_math", "core.protowire", "core.ranges",
     "core.sharded_files", "core.types",
-    "io.bam", "io.examples", "io.flax_msgpack", "io.tfrecord",
+    "io.bam", "io.bam_writer", "io.bgzf", "io.examples", "io.fasta",
+    "io.flax_msgpack", "io.tfrecord",
+    "make_examples.allele_counter", "make_examples.core",
+    "make_examples.examples_builder",
     "make_examples.pileup", "make_examples.pileup_device",
     "make_examples.presets", "make_examples.shuffle",
     "make_examples.variant_caller",
     "models.checkpoint", "models.inception_v3",
     "ops._build", "ops.pileup_paint",
+    "parallel.stream_pipeline",
+    "realign.config",
     "scripts.call_variants",
+    "testing.synthetic",
+    "utils.resources",
 ))
 
 _SCRIPT = r"""
@@ -71,6 +78,54 @@ def test_port_runs_without_importing_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
                          env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "clean" in out.stdout
+
+
+_STREAM_SCRIPT = r"""
+import os, sys, tempfile
+import torch
+torch.set_num_threads(2)
+from deepvariant_tpu_torch.core import types
+from deepvariant_tpu_torch.io import bam, bam_writer
+from deepvariant_tpu_torch.make_examples import core, presets
+from deepvariant_tpu_torch.models.inception_v3 import InceptionV3
+from deepvariant_tpu_torch.parallel.stream_pipeline import (
+    stream_examples_to_cvos)
+from deepvariant_tpu_torch.testing import synthetic
+sample = synthetic.synthetic_sample(3, (("chr1", 2500),))
+paths = synthetic.write_inputs(sample, tempfile.mkdtemp(), types, bam,
+                               bam_writer)
+options = core.MakeExamplesOptions(
+    reads_filename=paths["reads"], ref_filename=paths["ref"],
+    realigner_enabled=False, regions=["chr1:200-700"])
+presets.apply_model_preset(options, "WGS")
+torch.manual_seed(0)
+cvos, stats, _ = stream_examples_to_cvos(
+    options, 1, model=InceptionV3(7), batch_size=4, device_encode=True,
+    device="cpu", dtype=torch.float32)
+assert stats.num_cvos == len(cvos) > 0, stats
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not bad, bad
+print("clean", len(cvos))
+""" % (FORBIDDEN,)
+
+
+def test_stream_worker_runs_without_jax(tmp_path):
+    """The stream path from files, one spawned worker, on the CPU. The
+    worker is a process of its own, so `sys.modules` of the driver says
+    nothing about it: stand-ins for the forbidden packages that raise
+    on import come first on the path the worker inherits, and a worker
+    that fails fails the stream."""
+    for name in FORBIDDEN:
+        pkg = tmp_path / name
+        pkg.mkdir()
+        (pkg / "__init__.py").write_text(
+            f"raise ImportError('the port must not import {name}')\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
+    out = subprocess.run([sys.executable, "-c", _STREAM_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "clean" in out.stdout

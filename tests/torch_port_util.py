@@ -236,3 +236,139 @@ def reference_window(reference, options, variant):
     window = reference[np.clip(cols, 0, len(reference) - 1)].copy()
     window[(cols < 0) | (cols >= len(reference))] = ord("N")
     return window
+
+
+# -- stage 1: the same objects and files for both packages --------------------
+
+PACKAGES = ("deepvariant_tpu", "deepvariant_tpu_torch")
+
+
+def package_module(package, name):
+    import importlib
+
+    return importlib.import_module(f"{package}.{name}")
+
+
+def to_package(obj, package):
+    """`obj` (a MakeExamplesOptions, ReadBatch, DeepVariantCall,
+    PlannedExample, Variant, Range, ... of either package) rebuilt from
+    the other package's classes: dataclass fields and ReadBatch columns
+    carried across as numpy arrays and plain values, recursively. The
+    class is found by name in the module at the same relative path."""
+    import dataclasses
+    import importlib
+
+    def twin(cls):
+        module = cls.__module__
+        for prefix in sorted(PACKAGES, key=len, reverse=True):
+            if module == prefix or module.startswith(prefix + "."):
+                module = package + module[len(prefix):]
+                return getattr(importlib.import_module(module), cls.__name__)
+        return None
+
+    def convert(value):
+        if isinstance(value, np.ndarray):
+            return value.copy()
+        if isinstance(value, list):
+            return [convert(v) for v in value]
+        if isinstance(value, tuple):
+            return tuple(convert(v) for v in value)
+        if isinstance(value, dict):
+            return {convert(k): convert(v) for k, v in value.items()}
+        cls = type(value)
+        target = twin(cls) if hasattr(cls, "__module__") else None
+        if target is None:
+            return value
+        if dataclasses.is_dataclass(value):
+            return target(**{f.name: convert(getattr(value, f.name))
+                             for f in dataclasses.fields(value)})
+        if cls.__name__ == "ReadBatch":
+            out = target(list(value.ref_names))
+            for slot in cls.__slots__:
+                if slot.startswith("_") or slot == "ref_names":
+                    continue
+                setattr(out, slot, convert(getattr(value, slot)))
+            return out
+        raise TypeError(f"no conversion for {cls}")
+
+    return convert(obj)
+
+
+READ_BATCH_COLUMNS = (
+    "flag", "ref_id", "pos", "mapq", "seq", "qual", "seq_offsets",
+    "cigar_ops", "cigar_lens", "cigar_offsets", "mate_ref_id", "mate_pos",
+    "tlen", "hp")
+
+
+def assert_batches_equal(got, want):
+    """Two ReadBatches (of either package) equal field by field, dtypes
+    included."""
+    assert got.ref_names == want.ref_names
+    assert got.name == want.name
+    assert got.aux == want.aux
+    for column in READ_BATCH_COLUMNS:
+        g, w = getattr(got, column), getattr(want, column)
+        assert g.dtype == w.dtype, column
+        np.testing.assert_array_equal(g, w, err_msg=column)
+
+
+def assert_calls_equal(got, want):
+    """Two lists of DeepVariantCalls: variant bytes, support lists and
+    their dict orders."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.variant.encode() == w.variant.encode()
+        assert list(g.allele_support.items()) == \
+            list(w.allele_support.items())
+        assert g.ref_support == w.ref_support
+        assert list(g.allele_keys.items()) == list(w.allele_keys.items())
+        assert g.allele_frequency_at_position == \
+            w.allele_frequency_at_position
+
+
+def assert_planned_equal(got, want):
+    """Two lists of PlannedExamples, in order: variant bytes, alt
+    indices, type, and the plans bit-identical key by key."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.variant.encode() == w.variant.encode()
+        assert g.alt_indices == w.alt_indices
+        assert g.variant_type == w.variant_type and g.label == w.label
+        assert list(g.plan) == list(w.plan)
+        for key in w.plan:
+            assert g.plan[key].dtype == w.plan[key].dtype, key
+            assert g.plan[key].shape == w.plan[key].shape, key
+            np.testing.assert_array_equal(g.plan[key], w.plan[key],
+                                          err_msg=key)
+
+
+def stage1_sample(seed=7, contig_lengths=(("chr1", 6000), ("chr2", 3000))):
+    """The seeded synthetic sample (reference with N runs and a repeat,
+    planted SNPs, indels and multi-allelic sites, 30x of 150-base paired
+    reads with clips, duplicates, secondary and supplementary flags and
+    low mapq)."""
+    from deepvariant_tpu_torch.testing import synthetic
+
+    return synthetic.synthetic_sample(seed, contig_lengths)
+
+
+def write_stage1_inputs(sample, directory, package="deepvariant_tpu"):
+    """ref.fa and the indexed reads.bam of `sample`, written by one
+    package's writers (the JAX package's unless asked otherwise);
+    returns {'ref': path, 'reads': path}."""
+    from deepvariant_tpu_torch.testing import synthetic
+
+    return synthetic.write_inputs(
+        sample, str(directory), package_module(package, "core.types"),
+        package_module(package, "io.bam"),
+        package_module(package, "io.bam_writer"))
+
+
+def wgs_options(package, paths, **overrides):
+    """MakeExamplesOptions of one package: WGS preset, realigner off."""
+    core = package_module(package, "make_examples.core")
+    presets = package_module(package, "make_examples.presets")
+    options = core.MakeExamplesOptions(
+        reads_filename=paths["reads"], ref_filename=paths["ref"],
+        realigner_enabled=False, **overrides)
+    return presets.apply_model_preset(options, "WGS")
