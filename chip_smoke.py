@@ -33,13 +33,25 @@ Phases:
      over plans that carry the alt tensors.
   6. The region-gather encoder: encode_region_candidates over synthetic
      reads on the card equals the same call on the CPU.
-  7. One JSON line per the kernels, the card's name and power limit, and
+  7. Stage 1 from files through the stream path, at the full width of
+     the WGS model (100x221x7, InceptionV3(7), bfloat16, batch 512):
+     write a seeded FASTA and an indexed BAM with the port's own
+     writers, run `make_examples_runner` with a plan sink in this
+     process and keep the plans, then run
+     `stream_examples_to_cvos(device_encode=True)` with two spawned
+     workers feeding the card. As many CVOs as plans; the same variants
+     and alt indices; probabilities equal to PlanPredictor on the kept
+     plans; the first batch's fused images bit-identical to the plain
+     painter; one launch of the plan form per batch. Prints the reads
+     decoded per second, one worker's candidates and plans per second,
+     and the whole path's examples per second.
+  8. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
-paths) and read just after, and again around phase 5 (the long-read
-path); the comparisons of phase 2 and of the checks after the paths are
-not counted. Any failed check raises, and the script exits non-zero; it
+paths) and read just after, again around phase 5 (the long-read path)
+and again around phase 7's stream; the comparisons of phase 2 and of
+the checks after the paths are not counted. Any failed check raises, and the script exits non-zero; it
 also exits non-zero, printing no result, when no CUDA card is available.
 """
 
@@ -107,6 +119,10 @@ STAGED_REPEATS = 8  # the example file is read this many times when timed
 N_PLANS = 1024
 BATCH = 512
 SEED = 20261016
+# Phase 7's sample: two contigs, 30x of paired 150-base reads, a variant
+# planted every 70-87 bases: about 5,000 examples, ten batches.
+STREAM_CONTIGS = (("chr1", 250_000), ("chr2", 110_000))
+STREAM_WORKERS = 2
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -266,7 +282,8 @@ def stack_plans(plans, keys, device):
 def phase_paint_kernel(device) -> list:
     """Both forms of the paint kernel against their plain versions at
     PAINT_CASES, their timings at the WGS and long-read shapes, and the
-    painter's one launch. Returns the two entries of the kernels line."""
+    painter's one launch. Returns the three entries of the kernels line
+    (the WGS paths, the long-read path, the from-files stream path)."""
     import torch
 
     from deepvariant_tpu_torch.make_examples.pileup import (
@@ -383,6 +400,10 @@ def phase_paint_kernel(device) -> list:
         # channels and the two diff planes.
         entry("pileup_paint_longread", ("longread", "plan"),
               image_fill_ms=timed["longread", "fill"]),
+        # The plan form on the from-files stream path: the WGS shape
+        # again, 512x(5+95)x221, 7 planes, once per batch of 512.
+        entry("pileup_paint_plan_from_files", ("wgs", "plan"),
+              image_fill_ms=timed["wgs", "fill"]),
     ]
 
 
@@ -705,6 +726,142 @@ def phase_region_encoder(device):
           "crowded)")
 
 
+def locus_key(variant, alt_indices) -> tuple:
+    return (variant.reference_name, variant.start, variant.end,
+            tuple(alt_indices))
+
+
+def phase_stream(tmp: str, model, device, card: str):
+    """Phase 7. Returns (numbers, launches of the plan form on the
+    stream path)."""
+    import torch
+
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.core import types
+    from deepvariant_tpu_torch.core.genomics_math import round_gls
+    from deepvariant_tpu_torch.io import bam, bam_writer
+    from deepvariant_tpu_torch.make_examples.core import (
+        MakeExamplesOptions,
+        make_examples_runner,
+    )
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.parallel.stream_pipeline import (
+        stream_examples_to_cvos,
+    )
+    from deepvariant_tpu_torch.testing import synthetic
+
+    cpus = os.cpu_count()
+    start = time.time()
+    sample = synthetic.synthetic_sample(SEED + 7, STREAM_CONTIGS)
+    paths = synthetic.write_inputs(sample, os.path.join(tmp, "files"), types,
+                                   bam, bam_writer)
+    n_written = len(sample["reads"]["name"])
+    print(f"[files] wrote {sum(n for _, n in STREAM_CONTIGS)} reference "
+          f"bases and {n_written} reads ({os.path.getsize(paths['reads'])} "
+          f"BAM bytes, indexed) in {time.time() - start:.1f} s")
+
+    start = time.time()
+    with bam.BamReader(paths["reads"]) as reader:
+        n_decoded = len(reader.iterate())
+    decode_s = time.time() - start
+    reads_per_s = n_decoded / decode_s
+    print(f"[files] BamReader.iterate: {n_decoded} reads decoded (BGZF "
+          f"inflate and the Python record decoder) in {decode_s:.2f} s: "
+          f"{reads_per_s:.1f} reads/s; host CPUs {cpus}, beside {card}")
+
+    def options(**more):
+        return apply_model_preset(MakeExamplesOptions(
+            reads_filename=paths["reads"], ref_filename=paths["ref"],
+            realigner_enabled=False, **more), "WGS")
+
+    kept = []
+    tsv = os.path.join(tmp, "runtime_by_region.tsv")
+    start = time.time()
+    counts = make_examples_runner(
+        options(candidates_filename=os.path.join(tmp, "candidates.tfrecord")),
+        runtime_by_region_path=tsv, plan_sink=kept.append)
+    runner_s = time.time() - start
+    with open(tsv) as f:
+        header, *rows = [line.rstrip("\n").split("\t") for line in f]
+    stage_s = {name: sum(float(r[i]) for r in rows)
+               for i, name in enumerate(header) if i and name != "total"}
+    if counts["examples"] != len(kept) or len(kept) < 2 * BATCH:
+        raise AssertionError(
+            f"the runner made {len(kept)} plans (counts {counts}); the "
+            f"phase needs at least {2 * BATCH}")
+    print(f"[files] make_examples_runner, one worker in process: "
+          f"{counts['candidates']} candidates and {len(kept)} plans from "
+          f"{len(rows)} regions in {runner_s:.2f} s: "
+          f"{counts['candidates'] / runner_s:.1f} candidates/s, "
+          f"{len(kept) / runner_s:.1f} plans/s; seconds by stage "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
+          + f"; host CPUs {cpus}, beside {card}")
+
+    predictor = PlanPredictor(model, options().pileup_options,
+                              batch_size=BATCH, device=device)
+    pp.paint_pileup.launches = 0
+    cvos, stats, _ = stream_examples_to_cvos(
+        options(), STREAM_WORKERS, batch_size=BATCH, device_encode=True,
+        plan_predictor_factory=lambda: predictor, device=device)
+    launches = pp.paint_pileup.launches
+    batches = -(-len(cvos) // BATCH)
+    print(f"[stream] {len(cvos)} CVOs from files with {STREAM_WORKERS} "
+          f"workers in {stats.wall_seconds:.2f} s: "
+          f"{stats.examples_per_sec:.1f} examples/s "
+          f"({stats.steady_state_examples_per_sec:.1f} from the first "
+          f"batch on); {launches} launches of the plan form for {batches} "
+          f"batches; {card}; host CPUs {cpus}")
+    if len(cvos) != len(kept) or stats.num_examples != len(kept):
+        raise AssertionError(f"{len(cvos)} CVOs for {len(kept)} plans")
+    if launches != batches:
+        raise AssertionError(f"{launches} launches of the plan form for "
+                             f"{batches} batches")
+    by_locus = {locus_key(p.variant, p.alt_indices): p for p in kept}
+    if len(by_locus) != len(kept):
+        raise AssertionError("two plans share a locus and alt indices")
+    # The kept plans in the stream's order of arrival: the same batches.
+    ordered = []
+    for cvo in cvos:
+        planned = by_locus.get(locus_key(cvo.variant, cvo.alt_allele_indices))
+        if planned is None or \
+                planned.variant.encode() != cvo.variant.encode():
+            raise AssertionError(
+                f"the stream's CVO at {cvo.variant.reference_name}:"
+                f"{cvo.variant.start} is not among the runner's plans")
+        ordered.append(planned.plan)
+    if sorted(locus_key(c.variant, c.alt_allele_indices) for c in cvos) != \
+            sorted(by_locus):
+        raise AssertionError("the stream's loci differ from the runner's")
+    probs = np.concatenate([predictor(ordered[i:i + BATCH])
+                            for i in range(0, len(ordered), BATCH)])
+    for cvo, p in zip(cvos, probs):
+        if cvo.genotype_probabilities != round_gls([float(x) for x in p]):
+            raise AssertionError(
+                f"stream probabilities {cvo.genotype_probabilities} differ "
+                f"from PlanPredictor's {p} at {cvo.variant.start}")
+    if not np.isfinite(probs).all():
+        raise AssertionError("stream probabilities are not finite")
+    print(f"[stream] as many CVOs as plans, the same variants and alt "
+          f"indices, probabilities == PlanPredictor on the kept plans "
+          f"({sum(len(c.alt_allele_indices) == 2 for c in cvos)} "
+          "two-alt examples)")
+    check_plan_path(predictor, ordered, probs, device, "stream")
+    numbers = {
+        "stream_reads": n_decoded, "stream_reads_decoded_per_s": reads_per_s,
+        "stream_candidates": counts["candidates"],
+        "stream_plans": len(kept),
+        "stream_one_worker_candidates_per_s": counts["candidates"] / runner_s,
+        "stream_one_worker_plans_per_s": len(kept) / runner_s,
+        "stream_one_worker_stage_s": stage_s,
+        "stream_workers": STREAM_WORKERS,
+        "stream_examples_per_s": stats.examples_per_sec,
+        "stream_steady_examples_per_s": stats.steady_state_examples_per_sec,
+        "stream_wall_s": stats.wall_seconds, "host_cpus": cpus,
+    }
+    return numbers, launches
+
+
 def main() -> int:
     import torch
 
@@ -723,7 +880,7 @@ def main() -> int:
           f"{torch.version.cuda}")
     summary = {"build_s": phase_build()}
     kernels = phase_paint_kernel(device)
-    wgs_kernel, longread_kernel = kernels
+    wgs_kernel, longread_kernel, stream_kernel = kernels
     from deepvariant_tpu_torch.make_examples.pileup import PileupOptions
     from deepvariant_tpu_torch.make_examples.presets import (
         apply_pileup_preset,
@@ -741,9 +898,13 @@ def main() -> int:
         check_plan_path(predictor, plans, probs, device, "plans")
         summary.update(time_device_steps(predictor, plans, model, device,
                                          "steps"))
+        del predictor, plans, probs
+        # Stage 1 from files through the stream path, the WGS model.
+        stream_numbers, stream_kernel["launches"] = phase_stream(
+            tmp, model, device, card)
+        summary.update(stream_numbers)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    del predictor, plans, probs
 
     # The long-read path: the PACBIO preset at 100x147x10.
     longread_options = apply_pileup_preset(PileupOptions(), "PACBIO")

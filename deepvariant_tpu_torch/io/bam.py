@@ -35,7 +35,6 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from deepvariant_tpu_torch.core.types import (
-    BAM_OP_TO_PROTO,
     ContigInfo,
     OPS_CONSUME_REF,
     Range,

@@ -67,7 +67,6 @@ from deepvariant_tpu_torch.utils.resources import ResourceMonitor
 DEFAULT_PARTITION_SIZE = 1000
 DEFAULT_MAX_READS_PER_PARTITION = 1500
 DEFAULT_RANDOM_SEED = 2101079370
-DEFAULT_CANDIDATES_PER_PARTITION = 200
 
 
 @dataclasses.dataclass

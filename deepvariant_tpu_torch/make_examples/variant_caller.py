@@ -24,7 +24,6 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from deepvariant_tpu_torch.core import genomics_math
 from deepvariant_tpu_torch.core.types import Range, Variant, VariantCall
 from deepvariant_tpu_torch.make_examples.allele_counter import (
     Allele,

@@ -86,6 +86,9 @@ def _stream_worker(options, task_id: int, num_shards: int,
 
         counts = make_examples_runner(options, plan_sink=plan_sink)
         flush()
+        if torch.cuda.is_initialized():
+            raise RuntimeError("a stream worker initialised CUDA; workers "
+                               "run on the host only")
         out_queue.put((_SENTINEL_KIND, task_id, counts, None))
     except BaseException as e:  # surfaced in the driver
         out_queue.put((_SENTINEL_KIND, task_id, {}, repr(e)))

@@ -86,7 +86,7 @@ def _hap_allele(v: dict, hap: int):
 
 
 def _read_from(ref, by_pos, start: int, hap: int, length: int):
-    """Walk the haplotype from `start`: (bases, cigar units, ref end)."""
+    """Walk the haplotype from `start`: (bases, cigar units)."""
     seq: List[int] = []
     cigar: List[List[int]] = []
 
@@ -127,7 +127,7 @@ def _read_from(ref, by_pos, start: int, hap: int, length: int):
             if len(seq) < length and pos + allele[1] < len(ref):
                 add(_D, allele[1])
                 pos += allele[1]
-    return seq, cigar, pos
+    return seq, cigar
 
 
 def synthetic_sample(
@@ -167,7 +167,7 @@ def synthetic_sample(
             kind = rng.rand()
             ends = []
             for which, s in ((0, start), (1, start + insert - read_length)):
-                seq, cigar, end = _read_from(ref, by_pos, s, hap, read_length)
+                seq, cigar = _read_from(ref, by_pos, s, hap, read_length)
                 seq = np.array(seq, np.uint8)
                 # Substitution errors and base qualities.
                 errs = np.flatnonzero(rng.rand(len(seq)) < 0.004)
@@ -197,7 +197,7 @@ def synthetic_sample(
                     else:
                         cigar.append([_H, int(rng.randint(5, 40))])
                 ends.append(dict(pos=pos, seq=seq, qual=qual, cigar=cigar,
-                                 end=end, which=which))
+                                 which=which))
             for e, mate in ((ends[0], ends[1]), (ends[1], ends[0])):
                 which = e["which"]
                 flag = 0x1 | 0x2 | (0x40 if which == 0 else 0x80)
