@@ -10,50 +10,24 @@ import torch
 
 from deepvariant_tpu.core import types as jt
 from deepvariant_tpu.io import bam as jbam
-from deepvariant_tpu.io import fasta as jfasta
 from deepvariant_tpu.make_examples import allele_counter as jac
 from deepvariant_tpu_torch.core import types as tt
 from deepvariant_tpu_torch.io import bam as tbam
-from deepvariant_tpu_torch.io import fasta as tfasta
 from deepvariant_tpu_torch.make_examples import allele_counter as tac
-from torch_port_util import stage1_sample, write_stage1_inputs
+from torch_port_util import (
+    STAGE1_REGIONS as REGIONS,
+    region_counters as counters,
+    stage1_sample,
+    write_stage1_inputs,
+)
 
 torch.set_num_threads(2)
-
-REGIONS = [("chr1", 0, 1000), ("chr1", 1000, 2000), ("chr1", 4000, 5000),
-           ("chr1", 5000, 6000), ("chr2", 0, 1000), ("chr2", 2000, 3000),
-           ("chr1", 1180, 1260)]
 
 
 @pytest.fixture(scope="module")
 def paths(tmp_path_factory):
     return write_stage1_inputs(stage1_sample(),
                                tmp_path_factory.mktemp("jax_in"))
-
-
-def counters(paths, region, **options):
-    """(JAX counter, port counter) over `region`, each fed by its own
-    package's readers, built as RegionProcessor._allele_counter does."""
-    out = []
-    for types, bam, fasta, ac in ((jt, jbam, jfasta, jac),
-                                  (tt, tbam, tfasta, tac)):
-        name, start, end = region
-        ref = fasta.FastaReader(paths["ref"])
-        with bam.BamReader(paths["reads"], bam.ReadRequirements(
-                min_mapping_quality=5)) as reader:
-            batch = reader.query(types.Range(name, start, end))
-        tail_end = min(ref.contig_length(name), end + 1000)
-        counter = ac.AlleleCounter(
-            ref.bases(types.Range(name, start, end)),
-            types.Range(name, start, end),
-            ac.AlleleCounterOptions(**options),
-            ref_prev_base=ref.query(types.Range(name, start - 1, start))
-            if start else "N",
-            ref_bases_after=ref.bases(types.Range(name, end, tail_end))
-            if tail_end > end else None)
-        counter.add_batch(batch)
-        out.append(counter)
-    return out
 
 
 def assert_counters_equal(got, want):

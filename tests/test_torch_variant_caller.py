@@ -13,9 +13,10 @@ from deepvariant_tpu.make_examples import allele_counter as jac
 from deepvariant_tpu.make_examples import variant_caller as jvc
 from deepvariant_tpu_torch.make_examples import allele_counter as tac
 from deepvariant_tpu_torch.make_examples import variant_caller as tvc
-from test_torch_allele_counter import REGIONS, counters
 from torch_port_util import (
+    STAGE1_REGIONS as REGIONS,
     assert_calls_equal,
+    region_counters as counters,
     stage1_sample,
     to_package,
     write_stage1_inputs,

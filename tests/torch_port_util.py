@@ -372,3 +372,37 @@ def wgs_options(package, paths, **overrides):
         reads_filename=paths["reads"], ref_filename=paths["ref"],
         realigner_enabled=False, **overrides)
     return presets.apply_model_preset(options, "WGS")
+
+
+STAGE1_REGIONS = [
+    ("chr1", 0, 1000), ("chr1", 1000, 2000), ("chr1", 4000, 5000),
+    ("chr1", 5000, 6000), ("chr2", 0, 1000), ("chr2", 2000, 3000),
+    ("chr1", 1180, 1260)]
+
+
+def region_counters(paths, region, **options):
+    """(JAX counter, port counter) over `region`, each fed by its own
+    package's readers, built as RegionProcessor._allele_counter does."""
+    out = []
+    for package in PACKAGES:
+        types = package_module(package, "core.types")
+        bam = package_module(package, "io.bam")
+        fasta = package_module(package, "io.fasta")
+        ac = package_module(package, "make_examples.allele_counter")
+        name, start, end = region
+        ref = fasta.FastaReader(paths["ref"])
+        with bam.BamReader(paths["reads"], bam.ReadRequirements(
+                min_mapping_quality=5)) as reader:
+            batch = reader.query(types.Range(name, start, end))
+        tail_end = min(ref.contig_length(name), end + 1000)
+        counter = ac.AlleleCounter(
+            ref.bases(types.Range(name, start, end)),
+            types.Range(name, start, end),
+            ac.AlleleCounterOptions(**options),
+            ref_prev_base=ref.query(types.Range(name, start - 1, start))
+            if start else "N",
+            ref_bases_after=ref.bases(types.Range(name, end, tail_end))
+            if tail_end > end else None)
+        counter.add_batch(batch)
+        out.append(counter)
+    return out
