@@ -44,7 +44,8 @@ Phases:
      plans; the first batch's fused images bit-identical to the plain
      painter; one launch of the plan form per batch. Prints the reads
      decoded per second, one worker's candidates and plans per second,
-     and the whole path's examples per second.
+     and the whole path's examples per second, then the rate of the same
+     stream with four workers.
   8. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
@@ -123,6 +124,7 @@ SEED = 20261016
 # planted every 70-87 bases: about 5,000 examples, ten batches.
 STREAM_CONTIGS = (("chr1", 250_000), ("chr2", 110_000))
 STREAM_WORKERS = 2
+STREAM_MORE_WORKERS = 4   # a second, unchecked-for-launches stream run
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -739,7 +741,7 @@ def phase_stream(tmp: str, model, device, card: str):
     from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
     from deepvariant_tpu_torch.core import types
     from deepvariant_tpu_torch.core.genomics_math import round_gls
-    from deepvariant_tpu_torch.io import bam, bam_writer
+    from deepvariant_tpu_torch.io import bam, bam_writer, bgzf
     from deepvariant_tpu_torch.make_examples.core import (
         MakeExamplesOptions,
         make_examples_runner,
@@ -762,13 +764,19 @@ def phase_stream(tmp: str, model, device, card: str):
           f"BAM bytes, indexed) in {time.time() - start:.1f} s")
 
     start = time.time()
+    with bgzf.BgzfReader(paths["reads"]) as raw:
+        inflated = len(raw.read_all())
+    inflate_s = time.time() - start
+    start = time.time()
     with bam.BamReader(paths["reads"]) as reader:
         n_decoded = len(reader.iterate())
     decode_s = time.time() - start
     reads_per_s = n_decoded / decode_s
     print(f"[files] BamReader.iterate: {n_decoded} reads decoded (BGZF "
           f"inflate and the Python record decoder) in {decode_s:.2f} s: "
-          f"{reads_per_s:.1f} reads/s; host CPUs {cpus}, beside {card}")
+          f"{reads_per_s:.1f} reads/s; the inflate alone "
+          f"(BgzfReader.read_all, {inflated} bytes) {inflate_s:.2f} s; "
+          f"host CPUs {cpus}, beside {card}")
 
     def options(**more):
         return apply_model_preset(MakeExamplesOptions(
@@ -847,6 +855,19 @@ def phase_stream(tmp: str, model, device, card: str):
           f"({sum(len(c.alt_allele_indices) == 2 for c in cvos)} "
           "two-alt examples)")
     check_plan_path(predictor, ordered, probs, device, "stream")
+    # The same stream with more workers: how the host's side scales.
+    more_cvos, more, _ = stream_examples_to_cvos(
+        options(), STREAM_MORE_WORKERS, batch_size=BATCH, device_encode=True,
+        plan_predictor_factory=lambda: predictor, device=device)
+    if sorted(locus_key(c.variant, c.alt_allele_indices)
+              for c in more_cvos) != sorted(by_locus):
+        raise AssertionError(f"the stream with {STREAM_MORE_WORKERS} "
+                             "workers gave other loci")
+    print(f"[stream] with {STREAM_MORE_WORKERS} workers: {len(more_cvos)} "
+          f"CVOs in {more.wall_seconds:.2f} s: "
+          f"{more.examples_per_sec:.1f} examples/s "
+          f"({more.steady_state_examples_per_sec:.1f} from the first batch "
+          f"on); {card}; host CPUs {cpus}")
     numbers = {
         "stream_reads": n_decoded, "stream_reads_decoded_per_s": reads_per_s,
         "stream_candidates": counts["candidates"],
@@ -858,6 +879,12 @@ def phase_stream(tmp: str, model, device, card: str):
         "stream_examples_per_s": stats.examples_per_sec,
         "stream_steady_examples_per_s": stats.steady_state_examples_per_sec,
         "stream_wall_s": stats.wall_seconds, "host_cpus": cpus,
+        "stream_inflate_s": inflate_s, "stream_decode_s": decode_s,
+        "stream_more_workers": STREAM_MORE_WORKERS,
+        "stream_more_workers_examples_per_s": more.examples_per_sec,
+        "stream_more_workers_steady_examples_per_s":
+            more.steady_state_examples_per_sec,
+        "stream_more_workers_wall_s": more.wall_seconds,
     }
     return numbers, launches
 

@@ -2,7 +2,7 @@
 
 The port's copy of the calling mode of one sample of
 `deepvariant_tpu.make_examples.core` (the reference's
-make_examples_core.py driver):
+make_examples_core.py):
   * region partitioning + round-robin task sharding
     (regions_to_process, make_examples_core.py:799-889);
   * per-region pipeline: BAM query with reservoir downsampling

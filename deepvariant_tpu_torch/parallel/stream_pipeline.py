@@ -5,7 +5,7 @@ product equivalent of the reference's fast_pipeline binary,
 fast_pipeline.cc:248), in its device-encode mode: N make_examples worker
 PROCESSES (spawned, host only; they never initialise CUDA) stop after
 row PLANNING and push compact PlannedExample payloads through a
-multiprocessing queue into the driver, which paints every pileup on the
+multiprocessing queue into the parent process, which paints every pileup on the
 card (one launch of the CUDA paint kernel's plan form per batch) and
 runs the CNN on the painted batch without the image leaving device
 memory (calling.plan_predictor.PlanPredictor). CallVariantsOutputs
@@ -90,7 +90,7 @@ def _stream_worker(options, task_id: int, num_shards: int,
             raise RuntimeError("a stream worker initialised CUDA; workers "
                                "run on the host only")
         out_queue.put((_SENTINEL_KIND, task_id, counts, None))
-    except BaseException as e:  # surfaced in the driver
+    except BaseException as e:  # surfaced in the parent process
         out_queue.put((_SENTINEL_KIND, task_id, {}, repr(e)))
         raise
 

@@ -460,7 +460,7 @@ def test_region_processor_steps_match_jax(paths):
     assert type(there[0]).__module__.startswith(PORT + ".")
     assert_planned_equal(there, got_out.plans)
     assert_planned_equal(to_package(there, JAX), want_out.plans)
-    # The builder's pieces.
+    # The pieces of ExamplesBuilder.
     tb, jb = tp.examples_builder, jp.examples_builder
     assert tb.example_shape() == jb.example_shape() == (100, 221, 7)
     assert tb.channel_enums() == jb.channel_enums()

@@ -114,7 +114,7 @@ print("clean", len(cvos))
 
 def test_stream_worker_runs_without_jax(tmp_path):
     """The stream path from files, one spawned worker, on the CPU. The
-    worker is a process of its own, so `sys.modules` of the driver says
+    worker is a process of its own, so `sys.modules` of this process says
     nothing about it: stand-ins for the forbidden packages that raise
     on import come first on the path the worker inherits, and a worker
     that fails fails the stream."""

@@ -172,7 +172,7 @@ def test_unported_modes_raise(paths, model):
 
 def test_a_failing_worker_fails_the_stream(paths, model):
     """An unported option reaches the worker, which refuses it; the
-    driver raises with the worker's message instead of hanging."""
+    stream raises with the worker's message instead of hanging."""
     options = wgs_options(PORT, paths, regions=["chr2:200-600"])
     options.realigner_enabled = True
     with pytest.raises(RuntimeError, match="realigner_enabled"):
