@@ -18,9 +18,11 @@ Phases:
      order and non-default colors; on plans with tlen -2**31, support
      codes outside 0..2, hp outside 0..2 and alt_present in all four
      combinations. Time the forms and their plain versions with CUDA
-     events at the WGS and long-read shapes, and check under
-     torch.profiler that one painter call launches exactly one CUDA
-     kernel.
+     events at the WGS and long-read shapes, and check that one painter
+     call is one kernel: the wrapper counts one launch and the allocator
+     one tensor (the output, no temporary), and where torch.profiler
+     delivers device records, they name the paint kernel and nothing
+     else.
   3. Staged call_variants: write synthetic 100x221x7 WGS examples and a
      seeded checkpoint with the port's own writers, run the CLI
      (`deepvariant_tpu_torch.scripts.call_variants.main`) on the card at
@@ -258,20 +260,47 @@ def bound(tensors, out) -> tuple:
         "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def kernels_launched(fn) -> list:
+def kernels_launched(fn, tries: int = 3) -> list:
     """Names of the device activities (kernels, copies, fills) of one
-    call of `fn`, traced by torch.profiler."""
+    call of `fn`, traced by torch.profiler. The device tracer does not
+    deliver its records in every session (a second session of one
+    process can come back empty), so an empty trace is taken again, and
+    the list is empty only if every one of `tries` sessions was."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    return []
+
+
+def one_launch_one_tensor(fn) -> tuple:
+    """(kernel launches counted by the paint wrapper, device tensors
+    allocated) in one call of `fn`, read from the wrapper's count and
+    the caching allocator's: a painter that is one kernel launches once
+    and allocates its output and no temporary."""
+    import torch
+
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+
+    fn()
+    torch.cuda.synchronize()
+    launches = pp.paint_pileup.launches
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"]
+    fn()
+    torch.cuda.synchronize()
+    return (pp.paint_pileup.launches - launches,
+            torch.cuda.memory_stats()["allocation.all.allocated"] - allocated)
 
 
 def stack_plans(plans, keys, device):
@@ -339,9 +368,17 @@ def phase_paint_kernel(device) -> list:
     timed = {}
     for name in ("wgs", "longread"):
         painter, args, rows_args = cases[name]
+        counted = one_launch_one_tensor(lambda: painter(*args))
         launched = kernels_launched(lambda: painter(*args))
-        print(f"[paint] one {name} painter call on the card: {launched}")
-        if len(launched) != 1 or "paint_kernel" not in launched[0]:
+        print(f"[paint] one {name} painter call on the card: {counted[0]} "
+              f"launch, {counted[1]} tensor allocated, traced "
+              f"{launched if launched else 'nothing (the profiler gave no device records)'}")
+        if counted != (1, 1):
+            raise AssertionError(
+                f"the {name} painter made {counted[0]} kernel launches and "
+                f"{counted[1]} device allocations, not one of each")
+        if launched and (len(launched) != 1
+                         or "paint_kernel" not in launched[0]):
             raise AssertionError(
                 f"the {name} painter launched {len(launched)} device "
                 f"activities, not one paint kernel: {launched}")
