@@ -6,9 +6,10 @@ make_examples_core.py):
   * region partitioning + round-robin task sharding
     (regions_to_process, make_examples_core.py:799-889);
   * per-region pipeline: BAM query with reservoir downsampling
-    (region_reads_norealign, :2408-2449) -> allele counting +
-    very-sensitive calling (candidates_in_region, :2832-2990) ->
-    device-encode plans, one per (candidate, alt combination);
+    (region_reads_norealign, :2408-2449) -> optional local-assembly
+    realignment (:2479) -> allele counting + very-sensitive calling
+    (candidates_in_region, :2832-2990) -> device-encode plans, one per
+    (candidate, alt combination);
   * OutputsWriter: the plan sink and the candidates TFRecord, and the
     example_info.json data contract (:3755-3774);
   * make_examples_runner main loop (:3481) with per-region runtime
@@ -18,12 +19,14 @@ Everything here runs on the host; the card paints the plans and runs
 the CNN (calling.plan_predictor). `MakeExamplesOptions` has every field
 of the JAX package's, so options print and pickle alike, but an option
 whose code is not ported yet makes `refuse_unported_options` raise
-NotImplementedError, naming the ROADMAP.md item that brings it: the
-realigner, read phasing, methylation, the small model, proposed and
-population VCFs, training mode, the candidate sweep, read
-normalization, gVCF output, CRAM input, trimmed and alt-aligned
-pileups, and host-painted examples (an examples file without a plan
-sink).
+NotImplementedError, naming the ROADMAP.md item that brings it: read
+phasing, methylation, the small model, proposed and population VCFs,
+training mode, the candidate sweep, read normalization, gVCF output,
+CRAM input, the alt-aligned pileups that the host painter composes
+(base_channels, rows, single_row), and host-painted examples (an
+examples file without a plan sink). The realigner (realign/), trimmed
+reads and the diff_channels alt planes run, on the host like the rest
+of this module.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from deepvariant_tpu_torch.make_examples.variant_caller import (
     VerySensitiveCaller,
 )
 from deepvariant_tpu_torch.realign.config import RealignerOptions
+from deepvariant_tpu_torch.realign.realigner import Realigner
 from deepvariant_tpu_torch.utils.resources import ResourceMonitor
 
 # Defaults from make_examples_options.py:200-215 and Appendix A.
@@ -386,11 +390,6 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
         refuse("candidate sweep mode", "the candidate sweep")
     if o.reads_filename.endswith(".cram"):
         refuse("CRAM input", "CRAM reading")
-    if o.realigner_enabled:
-        refuse("realigner_enabled=True (pass realigner_enabled=False, "
-               "--norealign_reads)",
-               "the realigner with ssw, the debruijn graph and "
-               "FastPassAligner")
     if o.phase_reads or o.enable_methylation_aware_phasing or \
             o.output_phase_info or \
             o.output_phasing_error_stats_filename or \
@@ -440,12 +439,12 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
         refuse("normalize_reads", "read normalization")
     if o.gvcf_filename:
         refuse("gvcf_filename", "gVCF")
-    if o.trim_reads_for_pileup:
-        refuse("trim_reads_for_pileup",
-               "alt_aligned.py and the long-read planner's diff branch")
-    if p.alt_aligned_pileup not in ("", "none"):
+    if p.alt_aligned_pileup not in ("", "none", "diff_channels"):
+        # base_channels, rows and single_row are composed from whole
+        # host-painted alt images (alt_aligned.compose_alt_aligned).
         refuse(f"alt_aligned_pileup={p.alt_aligned_pileup!r}",
-               "alt_aligned.py and the long-read planner's diff branch")
+               "the host painter build_pileup/encode_read_row and the "
+               "make_examples CLI")
 
 
 @dataclasses.dataclass
@@ -523,6 +522,9 @@ class RegionProcessor:
             sequencing_type=options.sequencing_type,
             trim_reads_for_pileup=options.trim_reads_for_pileup,
         )
+        self.realigner = Realigner(
+            options.realigner_options, self.ref_reader
+        ) if options.realigner_enabled else None
         # Fused-stream device encoding: emit PlannedExample payloads
         # (row tensors) instead of host-painted images; set by
         # make_examples_runner(plan_sink=...).
@@ -556,6 +558,29 @@ class RegionProcessor:
             )
             batch = batch.subset(keep)
         return batch
+
+    def realign_region_reads(
+        self, batch: ReadBatch, region: Range
+    ) -> ReadBatch:
+        if self.realigner is None or len(batch) == 0:
+            return batch
+        reads = batch.to_reads()
+        # Reads longer than --max_read_length_to_realign keep their
+        # original alignment (make_examples_options.py:236-244).
+        cap = self.options.max_read_length_to_realign
+        if cap > 0:
+            long_reads = [
+                r for r in reads if len(r.aligned_sequence) > cap
+            ]
+            reads = [r for r in reads if len(r.aligned_sequence) <= cap]
+        else:
+            long_reads = []
+        _, realigned = self.realigner.realign_reads(
+            reads, region, batch=batch if not long_reads else None
+        )
+        return ReadBatch.from_reads(
+            list(realigned) + long_reads, [region.reference_name]
+        )
 
     # -- candidates ---------------------------------------------------------
 
@@ -634,9 +659,10 @@ class RegionProcessor:
         t0 = time.perf_counter()
         batch = self.region_reads(region)
         runtimes["get reads"] = time.perf_counter() - t0
-        # The realigner is not ported; its slot keeps the runtime TSV's
-        # columns.
-        runtimes["realignment"] = 0.0
+
+        t0 = time.perf_counter()
+        batch = self.realign_region_reads(batch, region)
+        runtimes["realignment"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         candidates, _, _ = self.candidates_in_region(region, batch, False)

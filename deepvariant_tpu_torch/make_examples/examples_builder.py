@@ -5,10 +5,11 @@ which mirrors make_examples_native.cc: AltAlleleCombinations (:191-268),
 GetReferenceBasesForPileup (:516-540, N-padding at contig edges) and
 CreateAndWriteExamplesForCandidate (:632-720, read-overlap window
 selection). Ported: the plan path (`build_plans_for_candidate`), whose
-painting runs on the card. Not ported, and raising: the host painter
-(`build_examples_for_candidate`) and the trimmed-read and alt-aligned
-branches, which need `alt_aligned.py` and the FastPassAligner
-(ROADMAP.md Queue 1 item 3).
+painting runs on the card, with trimmed reads
+(`prepare_candidate_batch`) and the reads realigned to each alt
+haplotype (`iter_alt_batches`) that the diff_channels planes are planned
+from. Not ported, and raising: the host painter
+(`build_examples_for_candidate`, ROADMAP.md Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -31,12 +32,6 @@ from deepvariant_tpu_torch.make_examples.variant_caller import DeepVariantCall
 VARIANT_TYPE_UNKNOWN = 0
 VARIANT_TYPE_SNP = 1
 VARIANT_TYPE_INDEL = 2
-
-_ALT_ALIGNED_NOT_PORTED = (
-    "trimmed-read and alt-aligned pileups (alt_aligned.py, the "
-    "FastPassAligner) are not ported; ROADMAP.md Queue 1 item 3 "
-    "(alt_aligned.py and the long-read planner's diff branch)"
-)
 
 
 def encoded_variant_type(variant: Variant) -> int:
@@ -160,8 +155,57 @@ class ExamplesBuilder:
         combo: Sequence[str],
         sort_positions=None,
     ):
-        """Per-alt realigned inputs for alt-aligned pileups: not ported."""
-        raise NotImplementedError(_ALT_ALIGNED_NOT_PORTED)
+        """Per-alt realigned inputs for alt-aligned pileups.
+
+        Yields (remapped_call, alt_batch, alt_sort_positions,
+        hap_window) per alt in combo, or None when the haplotype is too
+        short. What the planner (pileup_device.plan_longread_example)
+        plans the alt-aligned planes from; the host painter, once
+        ported, shares it, so both see identical realigned read sets."""
+        from deepvariant_tpu_torch.io.bam import ReadBatch as _RB
+        from deepvariant_tpu_torch.make_examples import alt_aligned as aa
+
+        o = self.pileup_options
+        variant = dv_call.variant
+        contig = variant.reference_name
+        contig_n_bases = self.ref.contig_length(contig)
+        trimmed = batch.to_reads()
+        for alt in combo:
+            haplotype, ref_start, ref_end = aa.create_haplotype(
+                variant, alt, o.half_width, self.ref.query, contig_n_bases
+            )
+            if len(haplotype) < o.width:
+                yield None
+                continue
+            realigned = aa.realign_reads_to_haplotype(
+                haplotype, trimmed, contig, ref_start, ref_end,
+                self.ref.query, contig_n_bases,
+            )
+            kept = [(r, orig) for orig, r in enumerate(realigned)
+                    if r.aligned_sequence]
+            alt_batch = _RB.from_reads([r for r, _ in kept], [contig])
+            # Remap allele support into the alt batch's index space.
+            new_index = {orig: i for i, (_, orig) in enumerate(kept)}
+            remapped = DeepVariantCall(
+                variant=variant,
+                allele_support={
+                    a: [new_index[r] for r in ids if r in new_index]
+                    for a, ids in dv_call.allele_support.items()
+                },
+                ref_support=[
+                    new_index[r] for r in dv_call.ref_support
+                    if r in new_index
+                ],
+            )
+            alt_sort_pos = None
+            if sort_positions is not None:
+                alt_sort_pos = np.array(
+                    [sort_positions[orig] for _, orig in kept], np.int64
+                )
+            hap_window = np.frombuffer(
+                haplotype[: o.width].encode(), np.uint8
+            )
+            yield (remapped, alt_batch, alt_sort_pos, hap_window)
 
     def prepare_candidate_batch(
         self,
@@ -192,7 +236,56 @@ class ExamplesBuilder:
         needs_alt = self.need_alt_alignment(variant)
         sort_positions = None
         if (self.trim_reads_for_pileup or needs_alt) and len(batch):
-            raise NotImplementedError(_ALT_ALIGNED_NOT_PORTED)
+            from deepvariant_tpu_torch.io.bam import ReadBatch
+            from deepvariant_tpu_torch.make_examples import alt_aligned as aa
+
+            region = aa.calculate_alignment_region(
+                variant, self.pileup_options.half_width,
+                self.ref.contig_length(variant.reference_name),
+            )
+            reads = batch.to_reads()
+            buf = self.pileup_options.read_overlap_buffer_bp
+            q_start = variant.start - buf
+            q_end = variant.start + len(variant.reference_bases) + buf
+            keep = [i for i, r in enumerate(reads)
+                    if r.position < q_end and r.end() > q_start]
+            reads = [reads[i] for i in keep]
+            remap_support = {orig: i for i, orig in enumerate(keep)}
+            dv_call = dataclasses.replace(
+                dv_call,
+                allele_support={
+                    a: [remap_support[r] for r in ids
+                        if r in remap_support]
+                    for a, ids in dv_call.allele_support.items()
+                },
+                ref_support=[
+                    remap_support[r] for r in dv_call.ref_support
+                    if r in remap_support
+                ],
+            )
+            trimmed, original_indices = aa.trim_reads(reads, region)
+            sort_positions = np.array(
+                [reads[i].position for i in original_indices], np.int64
+            )
+            batch = ReadBatch.from_reads(
+                trimmed, [variant.reference_name]
+            )
+            new_index = {o: i for i, o in enumerate(original_indices)}
+            dv_call = dataclasses.replace(
+                dv_call,
+                allele_support={
+                    a: [new_index[r] for r in ids if r in new_index]
+                    for a, ids in dv_call.allele_support.items()
+                },
+                ref_support=[
+                    new_index[r] for r in dv_call.ref_support
+                    if r in new_index
+                ],
+            )
+            read_indices = reads_overlapping_variant(
+                batch, variant,
+                self.pileup_options.read_overlap_buffer_bp,
+            )
         return dv_call, batch, read_indices, sort_positions
 
     def build_examples_for_candidate(

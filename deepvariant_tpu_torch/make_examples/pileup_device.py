@@ -510,10 +510,11 @@ def plan_longread_example(
 ) -> Optional[dict]:
     """Host planning for one (candidate, alt-combo) example.
 
-    Runs the row-selection path and returns the gathered input dict for
-    make_longread_encode_fn, or None when the reference window is
-    unavailable. `builder` is the ExamplesBuilder (reference window,
-    candidate preparation)."""
+    Runs the trimming, realignment and row-selection paths and returns
+    the gathered input dict for make_longread_encode_fn, or None when the
+    reference window is unavailable. `builder` is the ExamplesBuilder
+    (reference window, candidate preparation, reads realigned to the alt
+    haplotypes)."""
     encoder = builder.encoder
     o = encoder.options
     variant = dv_call.variant
@@ -533,18 +534,44 @@ def plan_longread_example(
     rows = gather_plan_rows(tensors, plan, o.width)
     rows["ref_window"] = np.asarray(ref_window, np.uint8)
 
+    r = o.max_reads
+    alt_bases = np.zeros((2, r, o.width), np.uint8)
+    alt_row_valid = np.zeros((2, r), bool)
+    alt_ref = np.zeros((2, o.width), np.uint8)
+    alt_present = np.zeros(2, bool)
     if o.alt_aligned_pileup == "diff_channels" and \
             builder.need_alt_alignment(variant):
-        raise NotImplementedError(
-            "the alt-aligned planes of a plan need alt_aligned.py and the "
-            "FastPassAligner, which are not ported; ROADMAP.md Queue 1 "
-            "item 3 (alt_aligned.py and the long-read planner's diff "
-            "branch)")
-    r = o.max_reads
-    rows["alt_bases"] = np.zeros((2, r, o.width), np.uint8)
-    rows["alt_row_valid"] = np.zeros((2, r), bool)
-    rows["alt_ref"] = np.zeros((2, o.width), np.uint8)
-    rows["alt_present"] = np.zeros(2, bool)
+        items = list(builder.iter_alt_batches(
+            dv_call, batch, combo, sort_positions=sort_positions
+        ))
+        for i, item in enumerate(items[:2]):
+            if item is None:
+                continue
+            remapped, alt_batch, alt_sort_pos, hap_window = item
+            alt_tensors = build_region_tensors(
+                encoder, alt_batch, image_start, image_start + o.width
+            )
+            alt_plan = plan_candidate(
+                encoder, alt_tensors, remapped, alt_batch, combo,
+                np.asarray(hap_window, np.uint8),
+                read_indices=np.arange(len(alt_batch)),
+                sort_positions=alt_sort_pos,
+            )
+            g = gather_plan_rows(alt_tensors, alt_plan, o.width)
+            alt_bases[i] = g["bases"]
+            alt_row_valid[i] = g["row_valid"]
+            alt_ref[i] = np.asarray(hap_window, np.uint8)
+            alt_present[i] = True
+        # alt2 falls back to alt1 (pileup_image_native.h:232-242).
+        if len(items) < 2 or (alt_present[0] and not alt_present[1]):
+            alt_bases[1] = alt_bases[0]
+            alt_row_valid[1] = alt_row_valid[0]
+            alt_ref[1] = alt_ref[0]
+            alt_present[1] = alt_present[0]
+    rows["alt_bases"] = alt_bases
+    rows["alt_row_valid"] = alt_row_valid
+    rows["alt_ref"] = alt_ref
+    rows["alt_present"] = alt_present
     return rows
 
 

@@ -2,8 +2,9 @@
 
 The port's copy of `deepvariant_tpu.realign.config` (realigner_pb2
 options with the flag defaults of reference realigner.py:60-270).
-`MakeExamplesOptions` carries these so that options print and pickle
-as the JAX package's; the realigner itself is not ported yet.
+`MakeExamplesOptions` carries these, and the modules beside this one
+(window_selector, debruijn_graph, ssw, fast_pass_aligner, realigner)
+read them.
 """
 
 from __future__ import annotations

@@ -14,6 +14,10 @@ readers, the allele counter and the planners:
   reads, mates on the other contig, `tlen` of either sign, duplicates
   (same name, flag 0x400), secondary and supplementary flags, low mapq,
   and aux blobs with NM, RG and, on some reads, an HP tag.
+
+`synthetic_longread_sample` is the long-read form: single-end reads of a
+few kb with indel and substitution errors in their alignments, for the
+PacBio and ONT presets.
 """
 
 from __future__ import annotations
@@ -235,6 +239,13 @@ def synthetic_sample(
                 rows.append(row)
                 if rng.rand() < 0.03:
                     rows.append(dict(row, flag=flag | 0x400))
+    return dict(contigs=list(contig_lengths), reference=reference,
+                variants=variants, reads=_pack_reads(rows),
+                sample_name=sample_name)
+
+
+def _pack_reads(rows: List[dict]) -> dict:
+    """Read rows, coordinate sorted, as the columns of a ReadBatch."""
     rows.sort(key=lambda r: (r["ref_id"], r["pos"]))
     n = len(rows)
     seq_off = np.zeros(n + 1, np.int64)
@@ -242,7 +253,7 @@ def synthetic_sample(
     np.cumsum([len(r["seq"]) for r in rows], out=seq_off[1:])
     np.cumsum([len(r["cigar"]) for r in rows], out=cig_off[1:])
     flat_cigar = [u for r in rows for u in r["cigar"]]
-    reads = dict(
+    return dict(
         name=[r["name"] for r in rows],
         aux=[r["aux"] for r in rows],
         flag=np.array([r["flag"] for r in rows], np.uint16),
@@ -260,8 +271,147 @@ def synthetic_sample(
         cigar_offsets=cig_off,
         hp=np.zeros(n, np.int8),
     )
+
+
+def _long_read_from(rng, ref, by_pos, start: int, hap: int, length: int,
+                    sub_rate: float, ins_rate: float, del_rate: float):
+    """Walk the haplotype from `start` as `_read_from` does, with
+    sequencing errors written into the alignment: substitutions, and
+    one- or two-base insertions and one-base deletions that mostly
+    lengthen or shorten a homopolymer. (bases, cigar units); the
+    alignment starts and ends on a match."""
+    seq: List[int] = []
+    cigar: List[List[int]] = []
+
+    def add(op, n):
+        if cigar and cigar[-1][0] == op:
+            cigar[-1][1] += n
+        else:
+            cigar.append([op, n])
+
+    draws = rng.rand(length + 8)
+    picks = rng.randint(0, 4, length + 8)
+    pos = start
+    step = 0
+    while len(seq) < length and pos < len(ref):
+        v = by_pos.get(pos)
+        allele = _hap_allele(v, hap) if v is not None else None
+        base = int(ref[pos])
+        u = draws[step % len(draws)]
+        pick = int(picks[step % len(picks)])
+        step += 1
+        if allele is None:
+            clean = base != ord("N") and seq and cigar[-1][0] == _M
+            if clean and u < del_rate and pos + 1 < len(ref):
+                add(_D, 1)
+                pos += 1
+                continue
+            if clean and u < del_rate + sub_rate:
+                base = int(_BASES[pick])
+            seq.append(base)
+            add(_M, 1)
+            pos += 1
+            if clean and del_rate + sub_rate <= u < \
+                    del_rate + sub_rate + ins_rate:
+                ins = [base] * (1 + pick % 2) if pick else [int(_BASES[1])]
+                if length - len(seq) > len(ins):
+                    seq.extend(ins)
+                    add(_I, len(ins))
+        elif allele[0] == "snp":
+            seq.append(ord(allele[1]))
+            add(_M, 1)
+            pos += 1
+        elif allele[0] == "ins":
+            seq.append(base)
+            add(_M, 1)
+            pos += 1
+            room = length - len(seq)
+            ins = allele[1][:room]
+            if ins and room > len(ins):
+                seq.extend(ins.encode())
+                add(_I, len(ins))
+        else:
+            seq.append(base)
+            add(_M, 1)
+            pos += 1
+            if len(seq) < length and pos + allele[1] < len(ref):
+                add(_D, allele[1])
+                pos += allele[1]
+    while cigar and cigar[-1][0] != _M:
+        op, n = cigar.pop()
+        if op == _I:
+            del seq[-n:]
+    return seq, cigar
+
+
+def synthetic_longread_sample(
+    seed: int,
+    contig_lengths: Sequence[Tuple[str, int]] = (("chr1", 12000),
+                                                 ("chr2", 5000)),
+    depth: int = 20,
+    mean_read_length: int = 3000,
+    variant_spacing: int = 300,
+    hp_tags: bool = True,
+    sample_name: str = "synthetic_longread",
+) -> dict:
+    """The long-read form of `synthetic_sample`, in the same layout:
+    single-end reads of a few kb from either strand over the same kind of
+    reference and planted variants, with an error mix of indels (mostly
+    in homopolymers) and substitutions, long soft clips, a few
+    supplementary records and low-mapq reads, and, with `hp_tags`, an HP
+    tag naming the read's true haplotype on most reads."""
+    rng = np.random.RandomState(seed)
+    reference = {}
+    variants = {}
+    rows = []
+    serial = 0
+    for ref_id, (name, length) in enumerate(contig_lengths):
+        ref = _reference(rng, length)
+        reference[name] = ref
+        planted = _plant(rng, ref, variant_spacing)
+        variants[name] = planted
+        by_pos = {v["pos"]: v for v in planted}
+        n_reads = max(1, depth * length // mean_read_length)
+        for _ in range(n_reads):
+            want = int(np.clip(rng.normal(mean_read_length,
+                                          mean_read_length / 4),
+                               400, max(500, length - 50)))
+            start = int(rng.randint(0, max(1, length - want // 2)))
+            hap = int(rng.randint(2))
+            seq, cigar = _long_read_from(
+                rng, ref, by_pos, start, hap, want,
+                sub_rate=0.002, ins_rate=0.004, del_rate=0.004)
+            seq = np.array(seq, np.uint8)
+            qual = rng.randint(20, 51, len(seq)).astype(np.uint8)
+            low = rng.rand(len(seq)) < 0.02
+            qual[low] = rng.randint(2, 10, int(low.sum()))
+            pos = start
+            if rng.rand() < 0.1 and cigar[0][1] > 30:
+                k = min(int(rng.randint(20, 300)), cigar[0][1] - 10)
+                cigar[0][1] -= k
+                cigar.insert(0, [_S, k])
+                seq[:k] = _BASES[rng.randint(0, 4, k)]
+                pos += k
+            if rng.rand() < 0.1 and cigar[-1][1] > 30:
+                k = min(int(rng.randint(20, 300)), cigar[-1][1] - 10)
+                cigar[-1][1] -= k
+                cigar.append([_S, k])
+                seq[-k:] = _BASES[rng.randint(0, 4, k)]
+            flag = 0x10 if rng.rand() < 0.5 else 0
+            if rng.rand() < 0.03:
+                flag |= 0x800
+            mapq = int(rng.randint(0, 5)) if rng.rand() < 0.05 else 60
+            aux = b"RGZrg1\x00"
+            if hp_tags and rng.rand() < 0.7:
+                aux += b"HPC" + bytes([hap + 1])
+            rows.append(dict(
+                name=f"zmw{serial:06d}/ccs", flag=flag, ref_id=ref_id,
+                pos=pos, mapq=mapq, seq=seq, qual=qual, cigar=cigar,
+                mate_ref_id=-1, mate_pos=-1, tlen=0, aux=aux))
+            serial += 1
     return dict(contigs=list(contig_lengths), reference=reference,
-                variants=variants, reads=reads, sample_name=sample_name)
+                variants=variants, reads=_pack_reads(rows),
+                sample_name=sample_name)
 
 
 def read_batch(sample: dict, bam_module):

@@ -201,7 +201,6 @@ def test_model_presets_match_jax(model_type):
 
 
 UNPORTED = {
-    "realigner": dict(realigner_enabled=True),
     "cram": dict(reads_filename="reads.cram"),
     "phase_reads": dict(phase_reads=True),
     "phase-info": dict(output_phase_info=True),
@@ -230,7 +229,6 @@ UNPORTED = {
     "candidate-sweep": dict(mode="candidate_sweep"),
     "normalize-reads": dict(normalize_reads=True),
     "gvcf": dict(gvcf_filename="g.tfrecord"),
-    "trim-reads": dict(trim_reads_for_pileup=True),
 }
 
 
@@ -246,8 +244,7 @@ def test_unported_options_raise(paths, name):
         tcore.make_examples_runner(options, plan_sink=lambda plan: None)
 
 
-@pytest.mark.parametrize("mode", ["diff_channels", "base_channels", "rows",
-                                  "single_row"])
+@pytest.mark.parametrize("mode", ["base_channels", "rows", "single_row"])
 def test_alt_aligned_pileups_raise(paths, mode):
     options = wgs_options(PORT, paths)
     options.pileup_options.alt_aligned_pileup = mode

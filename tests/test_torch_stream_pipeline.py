@@ -174,8 +174,8 @@ def test_a_failing_worker_fails_the_stream(paths, model):
     """An unported option reaches the worker, which refuses it; the
     stream raises with the worker's message instead of hanging."""
     options = wgs_options(PORT, paths, regions=["chr2:200-600"])
-    options.realigner_enabled = True
-    with pytest.raises(RuntimeError, match="realigner_enabled"):
+    options.phase_reads = True
+    with pytest.raises(RuntimeError, match="phase_reads"):
         sp.stream_examples_to_cvos(options, 2, model=model, batch_size=BATCH,
                                    device_encode=True, device="cpu",
                                    dtype=torch.float32)
