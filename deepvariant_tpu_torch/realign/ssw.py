@@ -171,8 +171,12 @@ class SswAligner:
             h_b = [0] * width
             e_b = [0] * width
             h_c = [0] * width
-            # direction[i][x*3 + p]; p: 0=E entry, 1=F entry, 2=H entry
-            direction = [[0] * (width_d * 3) for _ in range(read_len)]
+            # direction[(i * width_d + x) * 3 + p]; p: 0=E entry, 1=F
+            # entry, 2=H entry. One flat array, as in dv_ssw_align: a
+            # trace that steps out of the band then reads the
+            # neighbouring row's cell, as it does there.
+            row = width_d * 3
+            direction = [0] * (row * read_len)
             max_score = 0
             u = 0
             for i in range(read_len):
@@ -180,7 +184,7 @@ class SswAligner:
                 end = min(ref_len - 1, i + band_width)
                 edge = min(end + 1, width - 1)
                 f = h_b[0] = e_b[0] = h_b[edge] = e_b[edge] = h_c[0] = 0
-                dline = direction[i]
+                d0 = row * i
                 off_i = max(0, i - band_width)
                 off_p = max(0, i - 1 - band_width)
                 for j in range(beg, end + 1):
@@ -188,7 +192,7 @@ class SswAligner:
                     eu = j - off_p + 1
                     b = j - 1 - off_i + 1
                     d = j - 1 - off_p + 1
-                    x3 = (j - off_i) * 3
+                    x3 = d0 + (j - off_i) * 3
                     if i == 0:
                         t1, t2 = -go, -ge
                     else:
@@ -197,13 +201,13 @@ class SswAligner:
                     e_val = t1 if t1 > t2 else t2
                     e_dir = 3 if t1 > t2 else 2
                     e_b[u] = e_val
-                    dline[x3] = e_dir
+                    direction[x3] = e_dir
 
                     t1 = h_c[b] - go
                     t2 = f - ge
                     f = t1 if t1 > t2 else t2
                     f_dir = 5 if t1 > t2 else 4
-                    dline[x3 + 1] = f_dir
+                    direction[x3 + 1] = f_dir
 
                     e1 = e_val if e_val > 0 else 0
                     f1 = f if f > 0 else 0
@@ -213,9 +217,9 @@ class SswAligner:
                     if h_c[u] > max_score:
                         max_score = h_c[u]
                     if t1 <= t2:
-                        dline[x3 + 2] = 1
+                        direction[x3 + 2] = 1
                     else:
-                        dline[x3 + 2] = e_dir if e1 > f1 else f_dir
+                        direction[x3 + 2] = e_dir if e1 > f1 else f_dir
                 h_b[:u + 1] = h_c[:u + 1]
             if max_score >= score:
                 break
@@ -227,8 +231,10 @@ class SswAligner:
         i, j = read_len - 1, ref_len - 1
         p = 2  # 0=E, 1=F, 2=H
         while i > 0 or j > 0:
-            x = j - max(0, i - band_width)
-            dval = direction[i][x * 3 + p]
+            at = row * i + (j - max(0, i - band_width)) * 3 + p
+            if not 0 <= at < len(direction):
+                return None
+            dval = direction[at]
             if dval == 1:
                 ops.append('M')
                 i -= 1

@@ -29,7 +29,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 # CIGAR op codes as the ReadBatch stores them (proto codes).
-_M, _I, _D, _S, _H = 1, 2, 3, 5, 6
+_M, _I, _D, _N, _S, _H = 1, 2, 3, 4, 5, 6
 _BASES = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -139,14 +139,19 @@ def synthetic_sample(
     contig_lengths: Sequence[Tuple[str, int]] = (("chr1", 6000),
                                                  ("chr2", 3000)),
     depth: int = 30,
-    read_length: int = 150,
+    read_length=150,
     variant_spacing: int = 70,
     sample_name: str = "synthetic",
+    skip_fraction: float = 0.0,
 ) -> dict:
     """The sample as plain values: `contigs` [(name, length)],
     `reference` {name: uint8 bases}, `variants` {name: planted variants},
     `reads` (columnar arrays and lists, coordinate sorted) and
-    `sample_name`."""
+    `sample_name`. `read_length` may be a list of lengths, one drawn for
+    each pair; `skip_fraction` of the reads get a reference skip (an N
+    op of 20-40 bases) inside their first match, as spliced RNA reads
+    have. Both draw from the seed only when asked for, so every sample
+    made without them keeps its bytes."""
     rng = np.random.RandomState(seed)
     names = [n for n, _ in contig_lengths]
     reference = {}
@@ -159,8 +164,12 @@ def synthetic_sample(
         planted = _plant(rng, ref, variant_spacing)
         variants[name] = planted
         by_pos = {v["pos"]: v for v in planted}
-        n_pairs = depth * length // (2 * read_length)
+        lengths = [read_length] if isinstance(read_length, int) \
+            else list(read_length)
+        n_pairs = depth * length * len(lengths) // (2 * sum(lengths))
         for _ in range(n_pairs):
+            read_length = lengths[0] if len(lengths) == 1 else \
+                int(lengths[rng.randint(len(lengths))])
             insert = int(np.clip(rng.normal(400, 60), read_length + 10, 700))
             start = int(rng.randint(0, max(1, length - insert - 20)))
             hap = int(rng.randint(2))
@@ -172,6 +181,14 @@ def synthetic_sample(
             ends = []
             for which, s in ((0, start), (1, start + insert - read_length)):
                 seq, cigar = _read_from(ref, by_pos, s, hap, read_length)
+                if skip_fraction and rng.rand() < skip_fraction and \
+                        cigar[0][1] > 80:
+                    # The bases under the skip leave the read.
+                    k = int(rng.randint(20, 41))
+                    a = int(rng.randint(20, cigar[0][1] - k - 10))
+                    rest = cigar[0][1] - a - k
+                    cigar[0:1] = [[_M, a], [_N, k], [_M, rest]]
+                    del seq[a:a + k]
                 seq = np.array(seq, np.uint8)
                 # Substitution errors and base qualities.
                 errs = np.flatnonzero(rng.rand(len(seq)) < 0.004)

@@ -21,15 +21,16 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "core.sharded_files", "core.types",
     "io.bam", "io.bam_writer", "io.bgzf", "io.examples", "io.fasta",
     "io.flax_msgpack", "io.tfrecord",
-    "make_examples.allele_counter", "make_examples.core",
-    "make_examples.examples_builder",
+    "make_examples.allele_counter", "make_examples.alt_aligned",
+    "make_examples.core", "make_examples.examples_builder",
     "make_examples.pileup", "make_examples.pileup_device",
     "make_examples.presets", "make_examples.shuffle",
     "make_examples.variant_caller",
     "models.checkpoint", "models.inception_v3",
     "ops._build", "ops.pileup_paint",
     "parallel.stream_pipeline",
-    "realign.config",
+    "realign.config", "realign.debruijn_graph", "realign.fast_pass_aligner",
+    "realign.realigner", "realign.ssw", "realign.window_selector",
     "scripts.call_variants",
     "testing.synthetic",
     "utils.resources",
@@ -99,7 +100,7 @@ paths = synthetic.write_inputs(sample, tempfile.mkdtemp(), types, bam,
                                bam_writer)
 options = core.MakeExamplesOptions(
     reads_filename=paths["reads"], ref_filename=paths["ref"],
-    realigner_enabled=False, regions=["chr1:200-700"])
+    regions=["chr1:200-700"])   # realigner on, the preset's default
 presets.apply_model_preset(options, "WGS")
 torch.manual_seed(0)
 cvos, stats, _ = stream_examples_to_cvos(

@@ -406,3 +406,80 @@ def region_counters(paths, region, **options):
         counter.add_batch(batch)
         out.append(counter)
     return out
+
+
+# -- the realigner and the alt-aligned pileups --------------------------------
+
+# The switches of the JAX package's native library that its realigner
+# reads; patched to False they leave its Python and numpy path.
+REALIGNER_NATIVES = ("has_ssw", "has_fast_align", "has_fast_pass", "has_dbg",
+                     "has_ssw_batch", "has_ssw_multi", "has_merge_cigar")
+
+
+def realigner_natives_off(monkeypatch, names=REALIGNER_NATIVES):
+    """Patch `deepvariant_tpu.io.native.has_*` off for one test."""
+    from deepvariant_tpu.io import native
+
+    for name in names:
+        monkeypatch.setattr(native, name, lambda: False)
+
+
+def sparse_sample(seed=7, contig_lengths=(("chr1", 4000), ("chr2", 2000)),
+                  **kwargs):
+    """The seeded sample with a variant every 400-500 bases: the window
+    selector's candidates then stay apart, every window is narrower than
+    max_window_size and assembles (at the default spacing of 70 the
+    windows merge into ones too wide to assemble)."""
+    from deepvariant_tpu_torch.testing import synthetic
+
+    return synthetic.synthetic_sample(seed, contig_lengths,
+                                      variant_spacing=400, **kwargs)
+
+
+def preset_options(package, paths, model_type="WGS", **overrides):
+    """MakeExamplesOptions of one package with a model preset applied and
+    nothing else changed (for WGS the realigner stays on)."""
+    core = package_module(package, "make_examples.core")
+    presets = package_module(package, "make_examples.presets")
+    options = core.MakeExamplesOptions(
+        reads_filename=paths["reads"], ref_filename=paths["ref"], **overrides)
+    return presets.apply_model_preset(options, model_type)
+
+
+def region_reads(package, paths, region, min_mapping_quality=5):
+    """(ReadBatch, [Read], FastaReader, Range) of one package over
+    `region` = (contig, start, end), read from the files."""
+    types = package_module(package, "core.types")
+    bam = package_module(package, "io.bam")
+    fasta = package_module(package, "io.fasta")
+    rng = types.Range(*region)
+    with bam.BamReader(paths["reads"], bam.ReadRequirements(
+            min_mapping_quality=min_mapping_quality)) as reader:
+        batch = reader.query(rng)
+    return batch, batch.to_reads(), fasta.FastaReader(paths["ref"]), rng
+
+
+def assert_reads_equal(got, want):
+    """Two lists of Reads (of either package) equal field by field."""
+    import dataclasses
+
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert dataclasses.asdict(g) == dataclasses.asdict(w)
+
+
+def make_reads(package, specs, reference_name="chr1"):
+    """Reads of one package from (sequence, position, cigar string,
+    mapq, base quality or qualities) tuples."""
+    types = package_module(package, "core.types")
+    cigar = package_module(package, "core.cigar")
+    reads = []
+    for i, (seq, position, cigar_string, mapq, qual) in enumerate(specs):
+        quals = bytes([qual] * len(seq)) if isinstance(qual, int) \
+            else bytes(qual)
+        reads.append(types.Read(
+            fragment_name=f"r{i}", aligned_sequence=seq,
+            aligned_quality=quals, reference_name=reference_name,
+            position=position, mapping_quality=mapq,
+            cigar=cigar.parse_cigar_string(cigar_string)))
+    return reads
