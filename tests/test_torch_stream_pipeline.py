@@ -31,7 +31,9 @@ from deepvariant_tpu_torch.calling import plan_predictor as plan
 from deepvariant_tpu_torch.models import inception_v3 as iv3
 from deepvariant_tpu_torch.parallel import stream_pipeline as sp
 from torch_port_util import (
+    preset_options,
     random_flax_variables,
+    sparse_sample,
     stage1_sample,
     wgs_options,
     write_stage1_inputs,
@@ -70,13 +72,47 @@ def locus(cvo):
 
 
 def test_stream_cvos_match_jax(paths, variables, model):
+    got = check_stream_against_jax(paths, variables, model, wgs_options, 24)
+    assert any(len(c.alt_allele_indices) == 2 for c in got)
+
+
+@pytest.fixture(scope="module")
+def sparse_paths(tmp_path_factory):
+    return write_stage1_inputs(sparse_sample(),
+                               tmp_path_factory.mktemp("sparse_in"))
+
+
+def test_stream_cvos_match_jax_with_the_realigner(sparse_paths, variables,
+                                                  model):
+    """The WGS preset as it is, realigner on, on the sample whose windows
+    assemble: the spawned workers realign, and the CVOs are the JAX
+    package's (native library loaded)."""
+    check_stream_against_jax(sparse_paths, variables, model, preset_options,
+                             6)
+    # The realigner changed what was called: the same stream without it
+    # gives other plans.
+    on, off = [], []
+    for sink, make in ((on, preset_options), (off, wgs_options)):
+        jcore.make_examples_runner(make(JAX, sparse_paths, regions=REGIONS),
+                                   plan_sink=sink.append)
+    assert len(on) != len(off) or any(
+        not np.array_equal(a.plan["bases"], b.plan["bases"])
+        for a, b in zip(on, off))
+
+
+def check_stream_against_jax(paths, variables, model, make_options,
+                             at_least):
+    """The port's stream with 2 spawned workers against the JAX package's
+    runner and predictor in this process; returns the port's CVOs sorted
+    by locus. `make_options(package, paths, **overrides)` builds the
+    options of either package."""
     cvos, stats, gvcfs = sp.stream_examples_to_cvos(
-        wgs_options(PORT, paths, regions=REGIONS), 2, model=model,
+        make_options(PORT, paths, regions=REGIONS), 2, model=model,
         batch_size=BATCH, device_encode=True, device="cpu",
         dtype=torch.float32)
     assert gvcfs is None
     assert stats.device_encode and stats.num_cvos == len(cvos)
-    assert stats.num_examples == len(cvos) >= 24
+    assert stats.num_examples == len(cvos) >= at_least
     assert sorted(stats.stage1_counts) == [0, 1]
     assert all(c["examples"] > 0 for c in stats.stage1_counts.values())
     assert stats.examples_per_sec > 0 and stats.wall_seconds > 0
@@ -85,8 +121,8 @@ def test_stream_cvos_match_jax(paths, variables, model):
     planned = []
     for task in (0, 1):
         jcore.make_examples_runner(
-            wgs_options(JAX, paths, regions=REGIONS, task_id=task,
-                        num_shards=2),
+            make_options(JAX, paths, regions=REGIONS, task_id=task,
+                         num_shards=2),
             plan_sink=planned.append)
     assert len(planned) == len(cvos)
     predictor = jax_plan.PlanPredictor(
@@ -109,8 +145,8 @@ def test_stream_cvos_match_jax(paths, variables, model):
                                    atol=1e-5, rtol=0)
         assert int(np.argmax(cvo.genotype_probabilities)) == \
             int(np.argmax(probs))
-    assert any(len(c.alt_allele_indices) == 2 for c in got)
     assert {c.variant.reference_name for c in got} == {"chr1", "chr2"}
+    return got
 
 
 def test_stream_equals_runner_plus_predictor(paths, model):

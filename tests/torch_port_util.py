@@ -437,13 +437,16 @@ def sparse_sample(seed=7, contig_lengths=(("chr1", 4000), ("chr2", 2000)),
 
 
 def preset_options(package, paths, model_type="WGS", **overrides):
-    """MakeExamplesOptions of one package with a model preset applied and
-    nothing else changed (for WGS the realigner stays on)."""
+    """MakeExamplesOptions of one package with a model preset applied
+    (for WGS the realigner stays on), then `overrides` set on top of it."""
     core = package_module(package, "make_examples.core")
     presets = package_module(package, "make_examples.presets")
-    options = core.MakeExamplesOptions(
-        reads_filename=paths["reads"], ref_filename=paths["ref"], **overrides)
-    return presets.apply_model_preset(options, model_type)
+    options = presets.apply_model_preset(core.MakeExamplesOptions(
+        reads_filename=paths["reads"], ref_filename=paths["ref"]), model_type)
+    for key, value in overrides.items():
+        assert hasattr(options, key), key
+        setattr(options, key, value)
+    return options
 
 
 def region_reads(package, paths, region, min_mapping_quality=5):
