@@ -46,16 +46,33 @@ Phases:
      plans; the first batch's fused images bit-identical to the plain
      painter; one launch of the plan form per batch. Prints the reads
      decoded per second, one worker's candidates and plans per second,
-     and the whole path's examples per second, then the rate of the same
-     stream with four workers.
-  8. One JSON line per the kernels, the card's name and power limit, and
+     and the whole path's examples per second. The realigner is switched
+     off here (`realigner_enabled=False`): this is the point phase 8 is
+     compared with.
+  8. The WGS preset with its defaults, realigner on, from files: a seeded
+     sample with a variant every 400-500 bases, so that the window
+     selector's windows stay under max_window_size and assemble (at
+     phase 7's 70-87 they merge and are skipped). The runner in this
+     process with a plan sink (candidates, plans, windows assembled,
+     reads whose alignment changed, seconds by stage with the
+     realignment column), once more with the realigner off, then the
+     stream with two workers on the card and phase 7's checks. Fails if
+     no read was realigned or if the plans equal the realigner-off run's.
+  9. Long reads from files: the long-read form of the seeded sample
+     (single-end reads of a few kb with indel errors and HP tags), the
+     PACBIO preset with phase_reads off (direct phasing is not ported),
+     plans whose alt tensors come from reads realigned to each alt
+     haplotype, and the stream at 100x147x10 in diff mode with the same
+     checks. Fails if no plan has alt_present set.
+ 10. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
-paths) and read just after, again around phase 5 (the long-read path)
-and again around phase 7's stream; the comparisons of phase 2 and of
-the checks after the paths are not counted. Any failed check raises, and the script exits non-zero; it
-also exits non-zero, printing no result, when no CUDA card is available.
+paths) and read just after, again around phase 5 (the long-read path),
+and again around the stream of each of phases 7, 8 and 9; the
+comparisons of phase 2 and of the checks after the paths are not
+counted. Any failed check raises, and the script exits non-zero; it also
+exits non-zero, printing no result, when no CUDA card is available.
 """
 
 from __future__ import annotations
@@ -126,7 +143,13 @@ SEED = 20261016
 # planted every 70-87 bases: about 5,000 examples, ten batches.
 STREAM_CONTIGS = (("chr1", 250_000), ("chr2", 110_000))
 STREAM_WORKERS = 2
-STREAM_MORE_WORKERS = 4   # a second, unchecked-for-launches stream run
+# Phase 8's sample: the same kind of reads, a variant every 400-500
+# bases. The port's realigner is Python and numpy and takes a few tenths
+# of a second per kb, which sizes this.
+REALIGN_CONTIGS = (("chr1", 26_000), ("chr2", 14_000))
+REALIGN_VARIANT_SPACING = 400
+# Phase 9's sample: 20x of single-end reads of about 3 kb.
+LONGREAD_CONTIGS = (("chr1", 50_000), ("chr2", 25_000))
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -408,24 +431,7 @@ def phase_paint_kernel(device) -> list:
               f"{timed[name, 'fill']:.4f} ms")
 
     def entry(name, key, **more):
-        kernel_ms, plain_ms, bound_ms, bound_by = timed[key]
-        return {
-            "name": name,
-            "route": "cuda",
-            "source": "deepvariant_tpu_torch/csrc/pileup_paint.cu",
-            "replaces": "deepvariant_tpu/ops/pileup_paint.py:87",
-            "tpu_kernel": "deepvariant_tpu/ops/pileup_paint.py:_paint_kernel",
-            "launches": None,
-            "max_abs_err": max_err,
-            "max_abs_diff": max_err,
-            "ms": kernel_ms,
-            "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "library_ms": None,
-            **more,
-        }
+        return kernel_entry(name, *timed[key], max_err, **more)
 
     plan_ms, plan_plain_ms, plan_bound_ms, plan_bound_by = timed["wgs", "plan"]
     return [
@@ -444,6 +450,29 @@ def phase_paint_kernel(device) -> list:
         entry("pileup_paint_plan_from_files", ("wgs", "plan"),
               image_fill_ms=timed["wgs", "fill"]),
     ]
+
+
+def kernel_entry(name, kernel_ms, plain_ms, bound_ms, bound_by, max_err,
+                 **more) -> dict:
+    """One entry of the kernels line; `launches` is filled in after the
+    entry's path has run."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "deepvariant_tpu_torch/csrc/pileup_paint.cu",
+        "replaces": "deepvariant_tpu/ops/pileup_paint.py:87",
+        "tpu_kernel": "deepvariant_tpu/ops/pileup_paint.py:_paint_kernel",
+        "launches": None,
+        "max_abs_err": max_err,
+        "max_abs_diff": max_err,
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        **more,
+    }
 
 
 def write_staged_inputs(tmp: str):
@@ -618,20 +647,22 @@ def check_plan_path(predictor, plans, probs, device, tag):
     )
 
     o = predictor.options
-    batch = plans[:BATCH]
-    images = predictor.encode(batch).cpu()
+    batch = plans[:BATCH]       # the first batch, which may not be full
+    images = predictor.encode(batch).cpu()[:len(batch)]
     keys = PLAN_KEYS + (ALT_KEYS if predictor.diff_mode else ())
     plain = make_longread_encode_fn(o)(*stack_plans(batch, keys, "cpu"))
-    shape = (BATCH, o.height, o.width, predictor.predictor.model.num_channels)
+    shape = (len(batch), o.height, o.width,
+             predictor.predictor.model.num_channels)
     if tuple(images.shape) != shape or not torch.equal(images, plain):
         raise AssertionError(f"{tag}: fused images {tuple(images.shape)} "
                              "differ from the plain painter")
     staged = Predictor(predictor.predictor.model, BATCH, device,
                        torch.bfloat16)(images.numpy())
-    if not np.array_equal(staged, probs[:BATCH]):
+    if not np.array_equal(staged, probs[:len(batch)]):
         raise AssertionError(
             f"{tag}: fused probabilities differ from Predictor on the same "
-            f"images (max {float(np.abs(staged - probs[:BATCH]).max()):.3g})")
+            "images (max "
+            f"{float(np.abs(staged - probs[:len(batch)]).max()):.3g})")
     print(f"[{tag}] fused images {shape} == plain painter; fused "
           "probabilities == Predictor on those images")
 
@@ -770,35 +801,178 @@ def locus_key(variant, alt_indices) -> tuple:
             tuple(alt_indices))
 
 
-def phase_stream(tmp: str, model, device, card: str):
-    """Phase 7. Returns (numbers, launches of the plan form on the
-    stream path)."""
-    import torch
-
-    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+def write_sample_files(sample, directory: str, tag: str) -> dict:
+    """The sample's FASTA and indexed BAM, written with the port's own
+    writers; returns their paths."""
     from deepvariant_tpu_torch.core import types
+    from deepvariant_tpu_torch.io import bam, bam_writer
+    from deepvariant_tpu_torch.testing import synthetic
+
+    start = time.time()
+    paths = synthetic.write_inputs(sample, directory, types, bam, bam_writer)
+    print(f"[{tag}] wrote {sum(n for _, n in sample['contigs'])} reference "
+          f"bases and {len(sample['reads']['name'])} reads "
+          f"({os.path.getsize(paths['reads'])} BAM bytes, indexed) in "
+          f"{time.time() - start:.1f} s")
+    return paths
+
+
+def run_runner(options, tmp: str, tag: str, card: str, least_plans: int):
+    """`make_examples_runner` with a plan sink, in this process. Returns
+    (kept plans, numbers: counts, seconds, seconds by stage)."""
+    from deepvariant_tpu_torch.make_examples.core import make_examples_runner
+
+    kept = []
+    tsv = os.path.join(tmp, f"{tag}.runtime_by_region.tsv")
+    options.candidates_filename = os.path.join(tmp,
+                                               f"{tag}.candidates.tfrecord")
+    start = time.time()
+    counts = make_examples_runner(options, runtime_by_region_path=tsv,
+                                  plan_sink=kept.append)
+    runner_s = time.time() - start
+    with open(tsv) as f:
+        header, *rows = [line.rstrip("\n").split("\t") for line in f]
+    stage_s = {name: sum(float(r[i]) for r in rows)
+               for i, name in enumerate(header) if i and name != "total"}
+    if counts["examples"] != len(kept) or len(kept) < least_plans:
+        raise AssertionError(
+            f"{tag}: the runner made {len(kept)} plans (counts {counts}); "
+            f"the phase needs at least {least_plans}")
+    print(f"[{tag}] make_examples_runner, one worker in process: "
+          f"{counts['candidates']} candidates and {len(kept)} plans from "
+          f"{len(rows)} regions in {runner_s:.2f} s: "
+          f"{counts['candidates'] / runner_s:.1f} candidates/s, "
+          f"{len(kept) / runner_s:.1f} plans/s; seconds by stage "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
+          + f"; host CPUs {os.cpu_count()}, beside {card}")
+    return kept, {"candidates": counts["candidates"], "plans": len(kept),
+                  "one_worker_s": runner_s,
+                  "one_worker_candidates_per_s":
+                      counts["candidates"] / runner_s,
+                  "one_worker_plans_per_s": len(kept) / runner_s,
+                  "one_worker_stage_s": stage_s}
+
+
+def run_stream(options, kept, predictor, device, card: str, tag: str):
+    """`stream_examples_to_cvos(device_encode=True)` with STREAM_WORKERS
+    spawned workers on the card, between a zeroed and a read launch
+    count, held against the plans the runner kept: as many CVOs, the same
+    variants and alt indices, probabilities equal to `predictor` on the
+    kept plans batched in the stream's order, the first batch's images
+    equal to the plain painter, one launch of the plan form per batch.
+    Returns (numbers, launches, the kept plans in the stream's order)."""
     from deepvariant_tpu_torch.core.genomics_math import round_gls
-    from deepvariant_tpu_torch.io import bam, bam_writer, bgzf
-    from deepvariant_tpu_torch.make_examples.core import (
-        MakeExamplesOptions,
-        make_examples_runner,
-    )
-    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
     from deepvariant_tpu_torch.ops import pileup_paint as pp
     from deepvariant_tpu_torch.parallel.stream_pipeline import (
         stream_examples_to_cvos,
     )
+
+    cpus = os.cpu_count()
+    pp.paint_pileup.launches = 0
+    cvos, stats, _ = stream_examples_to_cvos(
+        options, STREAM_WORKERS, batch_size=BATCH, device_encode=True,
+        plan_predictor_factory=lambda: predictor, device=device)
+    launches = pp.paint_pileup.launches
+    batches = -(-len(cvos) // BATCH)
+    print(f"[{tag}] {len(cvos)} CVOs from files with {STREAM_WORKERS} "
+          f"workers in {stats.wall_seconds:.2f} s: "
+          f"{stats.examples_per_sec:.1f} examples/s "
+          f"({stats.steady_state_examples_per_sec:.1f} from the first "
+          f"batch on); {launches} launches of the plan form for {batches} "
+          f"batches; {card}; host CPUs {cpus}")
+    if len(cvos) != len(kept) or stats.num_examples != len(kept):
+        raise AssertionError(f"{tag}: {len(cvos)} CVOs for {len(kept)} plans")
+    if launches != batches:
+        raise AssertionError(f"{tag}: {launches} launches of the plan form "
+                             f"for {batches} batches")
+    by_locus = {locus_key(p.variant, p.alt_indices): p for p in kept}
+    if len(by_locus) != len(kept):
+        raise AssertionError(f"{tag}: two plans share a locus and alt indices")
+    # The kept plans in the stream's order of arrival: the same batches.
+    ordered = []
+    for cvo in cvos:
+        planned = by_locus.get(locus_key(cvo.variant, cvo.alt_allele_indices))
+        if planned is None or \
+                planned.variant.encode() != cvo.variant.encode():
+            raise AssertionError(
+                f"{tag}: the stream's CVO at {cvo.variant.reference_name}:"
+                f"{cvo.variant.start} is not among the runner's plans")
+        ordered.append(planned.plan)
+    if sorted(locus_key(c.variant, c.alt_allele_indices) for c in cvos) != \
+            sorted(by_locus):
+        raise AssertionError(f"{tag}: the stream's loci differ from the "
+                             "runner's")
+    probs = np.concatenate([predictor(ordered[i:i + BATCH])
+                            for i in range(0, len(ordered), BATCH)])
+    for cvo, p in zip(cvos, probs):
+        if cvo.genotype_probabilities != round_gls([float(x) for x in p]):
+            raise AssertionError(
+                f"{tag}: stream probabilities {cvo.genotype_probabilities} "
+                f"differ from PlanPredictor's {p} at {cvo.variant.start}")
+    if not np.isfinite(probs).all():
+        raise AssertionError(f"{tag}: stream probabilities are not finite")
+    print(f"[{tag}] as many CVOs as plans, the same variants and alt "
+          f"indices, probabilities == PlanPredictor on the kept plans "
+          f"({sum(len(c.alt_allele_indices) == 2 for c in cvos)} "
+          "two-alt examples)")
+    check_plan_path(predictor, ordered, probs, device, tag)
+    return {"workers": STREAM_WORKERS,
+            "examples_per_s": stats.examples_per_sec,
+            "steady_examples_per_s": stats.steady_state_examples_per_sec,
+            "wall_s": stats.wall_seconds, "batches": batches}, \
+        launches, ordered
+
+
+def from_files_entry(name: str, predictor, ordered, tag: str) -> dict:
+    """The kernels-line entry of a from-files path: the plan form on the
+    path's own first batch of plans, as the predictor stages it (padded
+    to BATCH), against its plain version on the card, timed, with the
+    bound of these tensors."""
+    import torch
+
+    from deepvariant_tpu_torch.make_examples.pileup_device import (
+        ALT_KEYS,
+        PLAN_KEYS,
+    )
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+
+    staged = predictor.stage(ordered[:BATCH])
+    colors = predictor.encode_fn.colors
+    read_args = [staged[k] for k in PLAN_KEYS + (
+        ALT_KEYS if predictor.diff_mode else ())]
+    args = read_args + [None] * (len(PLAN_KEYS + ALT_KEYS) - len(read_args))
+    with torch.inference_mode():
+        out = pp.paint_pileup_plan(*args, colors)
+        plain = pp.paint_pileup_plan_reference(*args, colors)
+        torch.cuda.synchronize()
+        err = int((out.int() - plain.int()).abs().max())
+        if out.shape != plain.shape or not torch.equal(out, plain):
+            raise AssertionError(
+                f"{tag}: the plan form differs from its plain version on "
+                f"this path's plans (max abs err {err})")
+        bound_ms, bound_by = bound(read_args, out)
+        kernel_ms = device_ms(lambda: pp.paint_pileup_plan(*args, colors))
+        plain_ms = device_ms(
+            lambda: pp.paint_pileup_plan_reference(*args, colors), reps=10)
+    print(f"[{tag}] plan form on this path's plans at {tuple(out.shape)} == "
+          f"plain; kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}): {bound_ms / kernel_ms:.1%} of the "
+          "bound")
+    return kernel_entry(name, kernel_ms, plain_ms, bound_ms, bound_by, err)
+
+
+def phase_stream(tmp: str, model, device, card: str):
+    """Phase 7: the WGS preset from files, realigner off. Returns
+    (numbers, launches of the plan form on the stream path)."""
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.io import bam, bgzf
+    from deepvariant_tpu_torch.make_examples.core import MakeExamplesOptions
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
     from deepvariant_tpu_torch.testing import synthetic
 
     cpus = os.cpu_count()
-    start = time.time()
     sample = synthetic.synthetic_sample(SEED + 7, STREAM_CONTIGS)
-    paths = synthetic.write_inputs(sample, os.path.join(tmp, "files"), types,
-                                   bam, bam_writer)
-    n_written = len(sample["reads"]["name"])
-    print(f"[files] wrote {sum(n for _, n in STREAM_CONTIGS)} reference "
-          f"bases and {n_written} reads ({os.path.getsize(paths['reads'])} "
-          f"BAM bytes, indexed) in {time.time() - start:.1f} s")
+    paths = write_sample_files(sample, os.path.join(tmp, "files"), "files")
 
     start = time.time()
     with bgzf.BgzfReader(paths["reads"]) as raw:
@@ -815,115 +989,177 @@ def phase_stream(tmp: str, model, device, card: str):
           f"(BgzfReader.read_all, {inflated} bytes) {inflate_s:.2f} s; "
           f"host CPUs {cpus}, beside {card}")
 
+    def options():
+        # The realigner stays off here: phase 8 turns it on.
+        return apply_model_preset(MakeExamplesOptions(
+            reads_filename=paths["reads"], ref_filename=paths["ref"],
+            realigner_enabled=False), "WGS")
+
+    print("[files] WGS preset with realigner_enabled=False")
+    kept, runner = run_runner(options(), tmp, "files", card, 2 * BATCH)
+    predictor = PlanPredictor(model, options().pileup_options,
+                              batch_size=BATCH, device=device)
+    stream, launches, _ = run_stream(options(), kept, predictor, device,
+                                     card, "stream")
+    numbers = {
+        "stream_reads": n_decoded, "stream_reads_decoded_per_s": reads_per_s,
+        "stream_candidates": runner["candidates"],
+        "stream_plans": runner["plans"],
+        "stream_one_worker_candidates_per_s":
+            runner["one_worker_candidates_per_s"],
+        "stream_one_worker_plans_per_s": runner["one_worker_plans_per_s"],
+        "stream_one_worker_stage_s": runner["one_worker_stage_s"],
+        "stream_workers": STREAM_WORKERS,
+        "stream_examples_per_s": stream["examples_per_s"],
+        "stream_steady_examples_per_s": stream["steady_examples_per_s"],
+        "stream_wall_s": stream["wall_s"], "host_cpus": cpus,
+        "stream_inflate_s": inflate_s, "stream_decode_s": decode_s,
+    }
+    return numbers, launches
+
+
+def plans_equal(a, b) -> bool:
+    """Two lists of PlannedExamples hold the same loci and the same
+    tensors."""
+    if [locus_key(p.variant, p.alt_indices) for p in a] != \
+            [locus_key(p.variant, p.alt_indices) for p in b]:
+        return False
+    return all(np.array_equal(x.plan[k], y.plan[k])
+               for x, y in zip(a, b) for k in x.plan)
+
+
+def phase_realigned_stream(tmp: str, model, device, card: str):
+    """Phase 8: the WGS preset with its defaults, realigner on. Returns
+    (numbers, the path's kernels-line entry with its launches)."""
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.make_examples.core import MakeExamplesOptions
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.realign import realigner as realigner_module
+    from deepvariant_tpu_torch.testing import synthetic
+
+    tag = "realign"
+    kb = sum(n for _, n in REALIGN_CONTIGS) / 1000
+    sample = synthetic.synthetic_sample(
+        SEED + 8, REALIGN_CONTIGS, variant_spacing=REALIGN_VARIANT_SPACING)
+    paths = write_sample_files(sample, os.path.join(tmp, tag), tag)
+    print(f"[{tag}] WGS preset with its defaults (realigner on); a variant "
+          f"planted every {REALIGN_VARIANT_SPACING}-"
+          f"{REALIGN_VARIANT_SPACING * 5 // 4} bases, so that the selector's "
+          "windows stay narrower than max_window_size and assemble")
+
     def options(**more):
         return apply_model_preset(MakeExamplesOptions(
             reads_filename=paths["reads"], ref_filename=paths["ref"],
-            realigner_enabled=False, **more), "WGS")
+            **more), "WGS")
 
-    kept = []
-    tsv = os.path.join(tmp, "runtime_by_region.tsv")
-    start = time.time()
-    counts = make_examples_runner(
-        options(candidates_filename=os.path.join(tmp, "candidates.tfrecord")),
-        runtime_by_region_path=tsv, plan_sink=kept.append)
-    runner_s = time.time() - start
-    with open(tsv) as f:
-        header, *rows = [line.rstrip("\n").split("\t") for line in f]
-    stage_s = {name: sum(float(r[i]) for r in rows)
-               for i, name in enumerate(header) if i and name != "total"}
-    if counts["examples"] != len(kept) or len(kept) < 2 * BATCH:
-        raise AssertionError(
-            f"the runner made {len(kept)} plans (counts {counts}); the "
-            f"phase needs at least {2 * BATCH}")
-    print(f"[files] make_examples_runner, one worker in process: "
-          f"{counts['candidates']} candidates and {len(kept)} plans from "
-          f"{len(rows)} regions in {runner_s:.2f} s: "
-          f"{counts['candidates'] / runner_s:.1f} candidates/s, "
-          f"{len(kept) / runner_s:.1f} plans/s; seconds by stage "
-          + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
-          + f"; host CPUs {cpus}, beside {card}")
+    if not options().realigner_enabled:
+        raise AssertionError("the WGS preset left the realigner off")
+    # Count what the realigner does during the in-process run.
+    tally = {"regions": 0, "windows": 0, "reads": 0, "changed": 0}
+    plain_realign = realigner_module.Realigner.realign_reads
 
+    def counted_realign(self, reads, region, batch=None):
+        haplotypes, realigned = plain_realign(self, reads, region,
+                                              batch=batch)
+        given = {id(r) for r in reads}
+        tally["regions"] += 1
+        tally["windows"] += len(haplotypes)
+        tally["reads"] += len(reads)
+        # The aligner hands back the read it was given where nothing
+        # changed, and a new one where the position or the CIGAR did.
+        tally["changed"] += sum(id(r) not in given for r in realigned)
+        return haplotypes, realigned
+
+    realigner_module.Realigner.realign_reads = counted_realign
+    try:
+        kept, runner = run_runner(options(), tmp, tag, card, 16)
+    finally:
+        realigner_module.Realigner.realign_reads = plain_realign
+    stage_s = runner["one_worker_stage_s"]
+    share = stage_s["realignment"] / sum(stage_s.values())
+    print(f"[{tag}] the realigner assembled {tally['windows']} windows in "
+          f"{tally['regions']} regions ({tally['windows'] / kb:.2f} per kb) "
+          f"and changed the alignment of {tally['changed']} of "
+          f"{tally['reads']} reads ({tally['changed'] / kb:.2f} per kb); "
+          f"realignment {stage_s['realignment']:.2f} s, "
+          f"{stage_s['realignment'] / kb:.3f} s per kb, {share:.1%} of the "
+          f"worker's staged time; host CPUs {os.cpu_count()}, beside {card}")
+    if tally["changed"] == 0 or tally["windows"] == 0:
+        raise AssertionError(f"{tag}: no window assembled or no read "
+                             f"realigned ({tally})")
+    if stage_s["realignment"] <= 0:
+        raise AssertionError(f"{tag}: the realignment column is empty")
+    off, _ = run_runner(options(realigner_enabled=False), tmp, tag + "-off",
+                        card, 16)
+    if plans_equal(kept, off):
+        raise AssertionError(f"{tag}: the plans equal the realigner-off "
+                             "run's")
+    print(f"[{tag}] with the realigner off the runner makes {len(off)} "
+          f"plans, with it {len(kept)}; they differ")
     predictor = PlanPredictor(model, options().pileup_options,
                               batch_size=BATCH, device=device)
-    pp.paint_pileup.launches = 0
-    cvos, stats, _ = stream_examples_to_cvos(
-        options(), STREAM_WORKERS, batch_size=BATCH, device_encode=True,
-        plan_predictor_factory=lambda: predictor, device=device)
-    launches = pp.paint_pileup.launches
-    batches = -(-len(cvos) // BATCH)
-    print(f"[stream] {len(cvos)} CVOs from files with {STREAM_WORKERS} "
-          f"workers in {stats.wall_seconds:.2f} s: "
-          f"{stats.examples_per_sec:.1f} examples/s "
-          f"({stats.steady_state_examples_per_sec:.1f} from the first "
-          f"batch on); {launches} launches of the plan form for {batches} "
-          f"batches; {card}; host CPUs {cpus}")
-    if len(cvos) != len(kept) or stats.num_examples != len(kept):
-        raise AssertionError(f"{len(cvos)} CVOs for {len(kept)} plans")
-    if launches != batches:
-        raise AssertionError(f"{launches} launches of the plan form for "
-                             f"{batches} batches")
-    by_locus = {locus_key(p.variant, p.alt_indices): p for p in kept}
-    if len(by_locus) != len(kept):
-        raise AssertionError("two plans share a locus and alt indices")
-    # The kept plans in the stream's order of arrival: the same batches.
-    ordered = []
-    for cvo in cvos:
-        planned = by_locus.get(locus_key(cvo.variant, cvo.alt_allele_indices))
-        if planned is None or \
-                planned.variant.encode() != cvo.variant.encode():
-            raise AssertionError(
-                f"the stream's CVO at {cvo.variant.reference_name}:"
-                f"{cvo.variant.start} is not among the runner's plans")
-        ordered.append(planned.plan)
-    if sorted(locus_key(c.variant, c.alt_allele_indices) for c in cvos) != \
-            sorted(by_locus):
-        raise AssertionError("the stream's loci differ from the runner's")
-    probs = np.concatenate([predictor(ordered[i:i + BATCH])
-                            for i in range(0, len(ordered), BATCH)])
-    for cvo, p in zip(cvos, probs):
-        if cvo.genotype_probabilities != round_gls([float(x) for x in p]):
-            raise AssertionError(
-                f"stream probabilities {cvo.genotype_probabilities} differ "
-                f"from PlanPredictor's {p} at {cvo.variant.start}")
-    if not np.isfinite(probs).all():
-        raise AssertionError("stream probabilities are not finite")
-    print(f"[stream] as many CVOs as plans, the same variants and alt "
-          f"indices, probabilities == PlanPredictor on the kept plans "
-          f"({sum(len(c.alt_allele_indices) == 2 for c in cvos)} "
-          "two-alt examples)")
-    check_plan_path(predictor, ordered, probs, device, "stream")
-    # The same stream with more workers: how the host's side scales.
-    more_cvos, more, _ = stream_examples_to_cvos(
-        options(), STREAM_MORE_WORKERS, batch_size=BATCH, device_encode=True,
-        plan_predictor_factory=lambda: predictor, device=device)
-    if sorted(locus_key(c.variant, c.alt_allele_indices)
-              for c in more_cvos) != sorted(by_locus):
-        raise AssertionError(f"the stream with {STREAM_MORE_WORKERS} "
-                             "workers gave other loci")
-    print(f"[stream] with {STREAM_MORE_WORKERS} workers: {len(more_cvos)} "
-          f"CVOs in {more.wall_seconds:.2f} s: "
-          f"{more.examples_per_sec:.1f} examples/s "
-          f"({more.steady_state_examples_per_sec:.1f} from the first batch "
-          f"on); {card}; host CPUs {cpus}")
-    numbers = {
-        "stream_reads": n_decoded, "stream_reads_decoded_per_s": reads_per_s,
-        "stream_candidates": counts["candidates"],
-        "stream_plans": len(kept),
-        "stream_one_worker_candidates_per_s": counts["candidates"] / runner_s,
-        "stream_one_worker_plans_per_s": len(kept) / runner_s,
-        "stream_one_worker_stage_s": stage_s,
-        "stream_workers": STREAM_WORKERS,
-        "stream_examples_per_s": stats.examples_per_sec,
-        "stream_steady_examples_per_s": stats.steady_state_examples_per_sec,
-        "stream_wall_s": stats.wall_seconds, "host_cpus": cpus,
-        "stream_inflate_s": inflate_s, "stream_decode_s": decode_s,
-        "stream_more_workers": STREAM_MORE_WORKERS,
-        "stream_more_workers_examples_per_s": more.examples_per_sec,
-        "stream_more_workers_steady_examples_per_s":
-            more.steady_state_examples_per_sec,
-        "stream_more_workers_wall_s": more.wall_seconds,
-    }
-    return numbers, launches
+    stream, launches, ordered = run_stream(options(), kept, predictor,
+                                           device, card, tag)
+    entry = from_files_entry("pileup_paint_plan_from_files_realigned",
+                             predictor, ordered, tag)
+    entry["launches"] = launches
+    numbers = {f"realign_{k}": v for part in (runner, stream)
+               for k, v in part.items()}
+    numbers.update({
+        "realign_kb": kb, "realign_windows": tally["windows"],
+        "realign_reads": tally["reads"],
+        "realign_reads_changed": tally["changed"],
+        "realign_share_of_worker": share,
+        "realign_plans_realigner_off": len(off)})
+    return numbers, entry
+
+
+def phase_longread_stream(tmp: str, model, device, card: str):
+    """Phase 9: long reads from files, the PACBIO preset without read
+    phasing, in diff mode. Returns (numbers, the path's kernels-line
+    entry with its launches)."""
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.make_examples.core import MakeExamplesOptions
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.testing import synthetic
+
+    tag = "longread-files"
+    start = time.time()
+    sample = synthetic.synthetic_longread_sample(SEED + 9, LONGREAD_CONTIGS)
+    print(f"[{tag}] made the long-read sample in {time.time() - start:.1f} s")
+    paths = write_sample_files(sample, os.path.join(tmp, tag), tag)
+
+    def options():
+        o = apply_model_preset(MakeExamplesOptions(
+            reads_filename=paths["reads"], ref_filename=paths["ref"],
+            parse_sam_aux_fields=True, aux_fields_to_keep=["HP"]), "PACBIO")
+        o.phase_reads = False    # direct phasing is not ported
+        return o
+
+    print(f"[{tag}] PACBIO preset with phase_reads=False, HP tags read "
+          "from the BAM")
+    kept, runner = run_runner(options(), tmp, tag, card, 16)
+    present = sum(bool(p.plan["alt_present"].any()) for p in kept)
+    rows = sum(int(p.plan["alt_row_valid"].sum()) for p in kept)
+    print(f"[{tag}] {present} of {len(kept)} plans carry alt-aligned rows "
+          f"({rows} rows of reads realigned to an alt haplotype)")
+    if present == 0 or rows == 0:
+        raise AssertionError(f"{tag}: no plan has alt_present set")
+    predictor = PlanPredictor(model, options().pileup_options,
+                              batch_size=BATCH, device=device)
+    if not predictor.diff_mode:
+        raise AssertionError(f"{tag}: the predictor is not in diff mode")
+    stream, launches, ordered = run_stream(options(), kept, predictor,
+                                           device, card, tag)
+    entry = from_files_entry("pileup_paint_plan_longread_from_files",
+                             predictor, ordered, tag)
+    entry["launches"] = launches
+    numbers = {f"longread_files_{k}": v for part in (runner, stream)
+               for k, v in part.items()}
+    numbers.update({"longread_files_plans_with_alt": present,
+                    "longread_files_kb":
+                        sum(n for _, n in LONGREAD_CONTIGS) / 1000})
+    return numbers, entry
 
 
 def main() -> int:
@@ -963,26 +1199,38 @@ def main() -> int:
         summary.update(time_device_steps(predictor, plans, model, device,
                                          "steps"))
         del predictor, plans, probs
-        # Stage 1 from files through the stream path, the WGS model.
+        # Stage 1 from files through the stream path, the WGS model:
+        # realigner off, then the preset's defaults.
         stream_numbers, stream_kernel["launches"] = phase_stream(
             tmp, model, device, card)
         summary.update(stream_numbers)
+        realign_numbers, realign_kernel = phase_realigned_stream(
+            tmp, model, device, card)
+        summary.update(realign_numbers)
+        kernels.append(realign_kernel)
+
+        # The long-read path: the PACBIO preset at 100x147x10.
+        longread_options = apply_pileup_preset(PileupOptions(), "PACBIO")
+        longread_model = seeded_model(LONGREAD_SHAPE[2])
+        pp.paint_pileup.launches = 0
+        longread_numbers, predictor, plans, probs = phase_plans(
+            longread_model, device, longread_options, "longread")
+        longread_kernel["launches"] = pp.paint_pileup.launches
+        check_plan_path(predictor, plans, probs, device, "longread")
+        summary.update({
+            f"longread_{k}": v for part in (
+                longread_numbers, time_device_steps(
+                    predictor, plans, longread_model, device,
+                    "longread steps"))
+            for k, v in part.items()})
+        del predictor, plans, probs
+        # Long reads from files through the stream path.
+        longread_files_numbers, longread_files_kernel = \
+            phase_longread_stream(tmp, longread_model, device, card)
+        summary.update(longread_files_numbers)
+        kernels.append(longread_files_kernel)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-
-    # The long-read path: the PACBIO preset at 100x147x10.
-    longread_options = apply_pileup_preset(PileupOptions(), "PACBIO")
-    longread_model = seeded_model(LONGREAD_SHAPE[2])
-    pp.paint_pileup.launches = 0
-    longread_numbers, predictor, plans, probs = phase_plans(
-        longread_model, device, longread_options, "longread")
-    longread_kernel["launches"] = pp.paint_pileup.launches
-    check_plan_path(predictor, plans, probs, device, "longread")
-    summary.update({
-        f"longread_{k}": v for part in (
-            longread_numbers, time_device_steps(
-                predictor, plans, longread_model, device, "longread steps"))
-        for k, v in part.items()})
     phase_region_encoder(device)
 
     for k in kernels:

@@ -78,7 +78,7 @@ def local_scores(reference: str, queries: Sequence[str], match: int = 4,
                  gap_extend: int = 2) -> np.ndarray:
     """Best local-alignment score of every query against `reference`,
     scores only (dv_ssw_score_multi2): the same affine-gap recurrence as
-    `SswAligner._dp_matrix`, one DP row for all queries at a time, with
+    `SswAligner._local_ends`, one DP row for all queries at a time, with
     one difference in the scoring: only A, C, G and T can match, so an N
     in the query never matches an N in the reference. Sequences are
     taken as given (callers pass upper case)."""
@@ -131,28 +131,51 @@ class SswAligner:
 
     # -- numpy local DP ----------------------------------------------------
 
-    def _dp_matrix(self, ref: np.ndarray, q: np.ndarray) -> np.ndarray:
-        """Full H matrix of local SW; rows = ref positions (1-based)."""
-        n, m = len(ref), len(q)
+    def _local_ends(self, ref: np.ndarray, q: np.ndarray, target: int = 0):
+        """Row by row over the local SW matrix (rows are ref positions,
+        1-based): (score, ref_end, query_end) of the first maximum in
+        row-major order, or, with `target` > 0, of the first row that
+        holds a cell equal to `target` and the smallest query position in
+        it, where the scan then stops (ssw_local_ends of the native
+        library). Falls back to the maximum when no cell equals
+        `target`."""
+        m = len(q)
         o, e = self.gap_open, self.gap_extend
-        H = np.zeros((n + 1, m + 1), np.int32)
+        col = np.arange(m, dtype=np.int32) * e
+        o_col = col + o
+        sub = {}
+        prev = np.zeros(m + 1, np.int32)
+        cur = np.zeros(m + 1, np.int32)
+        h0 = np.zeros(m + 1, np.int32)       # column 0 stays 0
         E = np.full(m + 1, _NEG, np.int32)
-        sub = np.where(
-            ref[:, None] == q[None, :], self.match, -self.mismatch
-        ).astype(np.int32)
-        col_idx = np.arange(m, dtype=np.int32)
-        for i in range(1, n + 1):
-            E = np.maximum(H[i - 1] - o, E - e)
-            diag = np.empty(m + 1, np.int32)
-            diag[0] = _NEG
-            diag[1:] = H[i - 1, :-1] + sub[i - 1]
-            h0 = np.maximum(0, np.maximum(diag, E))
+        tmp = np.empty(m + 1, np.int32)
+        run = np.empty(m, np.int32)
+        best = best_i = best_j = 0
+        for i, base in enumerate(ref.tolist(), 1):
+            scores = sub.get(base)
+            if scores is None:
+                scores = sub[base] = np.where(
+                    q == base, self.match, -self.mismatch).astype(np.int32)
+            np.subtract(prev, o, out=tmp)
+            np.subtract(E, e, out=E)
+            np.maximum(E, tmp, out=E)
+            np.add(prev[:-1], scores, out=h0[1:])
+            np.maximum(h0[1:], E[1:], out=h0[1:])
+            np.maximum(h0[1:], 0, out=h0[1:])
             # F[j] = max_{k<j} (h0[k] - o - (j-1-k)*e), via prefix max
-            run = np.maximum.accumulate(h0[:-1] + col_idx * e)
-            F = run - o - col_idx * e
-            H[i, 0] = 0
-            H[i, 1:] = np.maximum(h0[1:], F)
-        return H
+            np.add(h0[:-1], col, out=run)
+            np.maximum.accumulate(run, out=run)
+            np.subtract(run, o_col, out=run)
+            np.maximum(h0[1:], run, out=cur[1:])
+            if target > 0:
+                hits = np.flatnonzero(cur == target)
+                if len(hits):
+                    return target, i, int(hits[0])
+            row_best = int(cur.max())
+            if row_best > best:
+                best, best_i, best_j = row_best, i, int(cur.argmax())
+            prev, cur = cur, prev
+        return best, best_i, best_j
 
     def _banded_global(self, ref: np.ndarray, q: np.ndarray,
                        score: int) -> Optional[List[str]]:
@@ -280,29 +303,16 @@ class SswAligner:
         n, m = len(ref), len(q)
         if n == 0 or m == 0:
             return Alignment()
-        # Phase 1: forward endpoint.
-        H = self._dp_matrix(ref, q)
-        target_rows = np.flatnonzero((H == known_score).any(axis=1)) \
-            if known_score > 0 else ()
-        if len(target_rows):
-            best = int(known_score)
-            re_i = int(target_rows[0])
-            re_j = int(np.flatnonzero(H[re_i] == best)[0])
-        else:
-            best = int(H.max())
-            if best <= 0:
-                return Alignment()
-            # row-major: smallest ref row, then query
-            re_i, re_j = divmod(int(H.argmax()), m + 1)
-        # Phase 2: reverse-pass begins (shortest span among co-optimal).
-        ref_rev = ref[:re_i][::-1]
-        q_rev = q[:re_j][::-1]
-        Hr = self._dp_matrix(ref_rev, q_rev)
-        hit_rows = np.flatnonzero((Hr == best).any(axis=1))
-        if not len(hit_rows):
+        # Phase 1: forward endpoint (row-major: smallest ref row, then
+        # query).
+        best, re_i, re_j = self._local_ends(ref, q, max(int(known_score), 0))
+        if best <= 0:
             return Alignment()
-        ri = int(hit_rows[0])
-        rj = int(np.flatnonzero(Hr[ri] == best)[0])
+        # Phase 2: reverse-pass begins (shortest span among co-optimal).
+        reached, ri, rj = self._local_ends(
+            ref[:re_i][::-1], q[:re_j][::-1], best)
+        if reached != best:
+            return Alignment()
         ref_begin = re_i - ri      # 0-based inclusive start on ref
         query_begin = re_j - rj    # 0-based inclusive start on query
         # Phase 3: banded global cigar over the subsegment.

