@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from deepvariant_tpu_torch.core.cigar import CHAR_TO_PROTO_OP, PROTO_OP_TO_CHAR
+from deepvariant_tpu_torch.core.cigar import CHAR_TO_PROTO_OP
 from deepvariant_tpu_torch.core.types import Read
 from deepvariant_tpu_torch.realign.config import AlignerOptions
 from deepvariant_tpu_torch.realign.ssw import SswAligner, local_scores

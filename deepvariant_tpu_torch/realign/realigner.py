@@ -22,8 +22,6 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
-
 from deepvariant_tpu_torch.core.types import Range, Read
 from deepvariant_tpu_torch.core.types import CHAR_TO_PROTO_OP
 from deepvariant_tpu_torch.io.bam import ReadBatch

@@ -168,13 +168,18 @@ class SswAligner:
             np.subtract(run, o_col, out=run)
             np.maximum(h0[1:], run, out=cur[1:])
             if target > 0:
-                hits = np.flatnonzero(cur == target)
-                if len(hits):
-                    return target, i, int(hits[0])
-            row_best = int(cur.max())
-            if row_best > best:
-                best, best_i, best_j = row_best, i, int(cur.argmax())
+                # The maximum is wanted only if no cell equals the
+                # target, which a second scan then finds.
+                hit = cur == target
+                if hit.any():
+                    return target, i, int(hit.argmax())
+            else:
+                row_best = int(cur.max())
+                if row_best > best:
+                    best, best_i, best_j = row_best, i, int(cur.argmax())
             prev, cur = cur, prev
+        if target > 0:
+            return self._local_ends(ref, q)
         return best, best_i, best_j
 
     def _banded_global(self, ref: np.ndarray, q: np.ndarray,
