@@ -1,6 +1,6 @@
 """Alt-aligned pileups of the port against the JAX package:
 `make_examples.alt_aligned` (read trimming, alt haplotypes, reads
-force-aligned to a haplotype), the builder's `prepare_candidate_batch`
+force-aligned to a haplotype), `ExamplesBuilder.prepare_candidate_batch`
 and `iter_alt_batches`, and the `diff_channels` branch of
 `pileup_device.plan_longread_example`, on reads decoded from the shared
 synthetic BAMs (150-base pairs, and the long-read sample).
@@ -217,7 +217,7 @@ def test_compose_alt_aligned_matches_jax(mode):
         taa.compose_alt_aligned(image, alts, "columns", ["A"])
 
 
-# -- the builder and the planner ----------------------------------------------
+# -- ExamplesBuilder and the planner -----------------------------------------
 
 def candidates_of(package, paths, region, model_type="WGS", pileup=None,
                   **overrides):
@@ -236,9 +236,10 @@ DIFF = dict(alt_aligned_pileup="diff_channels")
 
 
 @pytest.mark.parametrize("case", [
-    ("short", ("chr1", 1000, 2000), "WGS", dict(DIFF, types_to_alt_align="all"),
-     dict()),
-    ("short", ("chr2", 0, 1000), "WGS", dict(), dict(trim_reads_for_pileup=True)),
+    ("short", ("chr1", 1000, 2000), "WGS",
+     dict(DIFF, types_to_alt_align="all"), dict()),
+    ("short", ("chr2", 0, 1000), "WGS", dict(),
+     dict(trim_reads_for_pileup=True)),
     ("long", ("chr1", 0, 6000), "PACBIO", dict(),
      dict(phase_reads=False, parse_sam_aux_fields=True,
           aux_fields_to_keep=["HP"])),

@@ -224,8 +224,8 @@ def test_n_against_n_parts_the_jax_paths(monkeypatch):
     what the native path does."""
     hap = "ACGTACGGTC" + "N" * 20 + "GGATCCTAGA"
     read = "GGTC" + "N" * 20 + "GGATCC"
-    kernel = int(native.ssw_score_multi([hap.encode()], [1],
-                                        [read.encode()], *DEFAULT_SCORES)[0, 0])
+    kernel = int(native.ssw_score_multi(
+        [hap.encode()], [1], [read.encode()], *DEFAULT_SCORES)[0, 0])
     assert int(tssw.local_scores(hap, [read])[0]) == kernel == 24
     j, t = jssw.SswAligner(), tssw.SswAligner()
     j.set_reference_sequence(hap)
@@ -351,7 +351,7 @@ def test_assemble_haplotypes_matches_jax(name, jax_path):
         assert len(got) == 2
 
 
-def test_graph_internals_match_jax_python(monkeypatch):
+def test_graph_internals_match_jax_python():
     """`build` and the graph it returns: k, vertices and edges in
     insertion order, weights, paths before sorting."""
     ref, specs, _ = DBG_CASES["three-haplotypes"]
@@ -460,7 +460,7 @@ def test_window_selector_pieces_match_jax(dense_paths):
                            ref.query, batch, rng)
 
 
-# -- fast pass aligner: the free functions -------------------------------------
+# -- fast pass aligner: the free functions ------------------------------------
 
 def test_cigar_helpers_match_jax():
     rng = np.random.RandomState(3)
