@@ -923,7 +923,8 @@ def run_stream(options, kept, predictor, device, card: str, tag: str):
         launches, ordered
 
 
-def from_files_entry(name: str, predictor, ordered, tag: str) -> dict:
+def from_files_entry(name: str, predictor, ordered, tag: str,
+                     card: str) -> dict:
     """The kernels-line entry of a from-files path: the plan form on the
     path's own first batch of plans, as the predictor stages it (padded
     to BATCH), against its plain version on the card, timed, with the
@@ -957,7 +958,7 @@ def from_files_entry(name: str, predictor, ordered, tag: str) -> dict:
     print(f"[{tag}] plan form on this path's plans at {tuple(out.shape)} == "
           f"plain; kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}): {bound_ms / kernel_ms:.1%} of the "
-          "bound")
+          f"bound; {card}")
     return kernel_entry(name, kernel_ms, plain_ms, bound_ms, bound_by, err)
 
 
@@ -1101,7 +1102,7 @@ def phase_realigned_stream(tmp: str, model, device, card: str):
     stream, launches, ordered = run_stream(options(), kept, predictor,
                                            device, card, tag)
     entry = from_files_entry("pileup_paint_plan_from_files_realigned",
-                             predictor, ordered, tag)
+                             predictor, ordered, tag, card)
     entry["launches"] = launches
     numbers = {f"realign_{k}": v for part in (runner, stream)
                for k, v in part.items()}
@@ -1152,7 +1153,7 @@ def phase_longread_stream(tmp: str, model, device, card: str):
     stream, launches, ordered = run_stream(options(), kept, predictor,
                                            device, card, tag)
     entry = from_files_entry("pileup_paint_plan_longread_from_files",
-                             predictor, ordered, tag)
+                             predictor, ordered, tag, card)
     entry["launches"] = launches
     numbers = {f"longread_files_{k}": v for part in (runner, stream)
                for k, v in part.items()}
