@@ -49,27 +49,40 @@ Phases:
      and the whole path's examples per second. The realigner is switched
      off here (`realigner_enabled=False`): this is the point phase 8 is
      compared with.
-  8. The WGS preset with its defaults, realigner on, from files: a seeded
-     sample with a variant every 400-500 bases, so that the window
-     selector's windows stay under max_window_size and assemble (at
-     phase 7's 70-87 they merge and are skipped). The runner in this
+  8. The WGS preset with its defaults, realigner on, from files to a VCF:
+     a seeded sample with a variant every 400-500 bases, so that the
+     window selector's windows stay under max_window_size and assemble
+     (at phase 7's 70-87 they merge and are skipped). The runner in this
      process with a plan sink (candidates, plans, windows assembled,
      reads whose alignment changed, seconds by stage with the
      realignment column), once more with the realigner off, then the
      stream with two workers on the card and phase 7's checks. Fails if
      no read was realigned or if the plans equal the realigner-off run's.
-  9. Long reads from files: the long-read form of the seeded sample
-     (single-end reads of a few kb with indel errors and HP tags), the
-     PACBIO preset with phase_reads off (direct phasing is not ported),
-     plans whose alt tensors come from reads realigned to each alt
-     haplotype, and the stream at 100x147x10 in diff mode with the same
-     checks. Fails if no plan has alt_present set.
+     The stream's CVOs go to a TFRecord and through the port's
+     postprocess_variants CLI to a .vcf.gz and its .tbi.
+  9. Long reads from files to a VCF: the long-read form of the seeded
+     sample (single-end reads of a few kb with indel errors), the PACBIO
+     preset with its defaults (direct read phasing on; the BAM's HP tags
+     are not read) and output_phase_info, plans whose alt tensors come
+     from reads realigned to each alt haplotype, and
+     run_streaming_pipeline (the stream at 100x147x10 in diff mode, then
+     stage 3 on the CVOs in memory) to a .vcf.gz, with phase 7's checks.
+     Fails if no read got a phase, if the HP plane of the painted images
+     is all zero, if no plan has alt_present set, or if no VCF record
+     carries a phase set (PS). Prints the worker's "phase reads" seconds.
+     In phases 8 and 9 the VCF must equal, byte for byte, what
+     postprocess_variants writes from the same CVOs in memory, hold one
+     record per CVO group, and its .tbi must return the records of a
+     region; each prints stage 3's seconds and records per second and
+     the examples per second from the BAM to the VCF.
  10. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
 paths) and read just after, again around phase 5 (the long-read path),
-and again around the stream of each of phases 7, 8 and 9; the
+and again around the stream of each of phases 7, 8 and 9 (in phase 9
+around run_streaming_pipeline: the stream, then stage 3, which paints
+nothing); the
 comparisons of phase 2 and of the checks after the paths are not
 counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
@@ -801,6 +814,20 @@ def locus_key(variant, alt_indices) -> tuple:
             tuple(alt_indices))
 
 
+def variant_bytes(variant) -> bytes:
+    """The variant's wire bytes without its phase-set region label
+    (PS_CONTIG, "task-region number"): a stream worker numbers its own
+    shard's regions, the one runner process all of them."""
+    info = variant.info
+    if "PS_CONTIG" not in info:
+        return variant.encode()
+    variant.info = {k: v for k, v in info.items() if k != "PS_CONTIG"}
+    try:
+        return variant.encode()
+    finally:
+        variant.info = info
+
+
 def write_sample_files(sample, directory: str, tag: str) -> dict:
     """The sample's FASTA and indexed BAM, written with the port's own
     writers; returns their paths."""
@@ -853,25 +880,65 @@ def run_runner(options, tmp: str, tag: str, card: str, least_plans: int):
                   "one_worker_stage_s": stage_s}
 
 
-def run_stream(options, kept, predictor, device, card: str, tag: str):
+def run_stream(options, kept, predictor, device, card: str, tag: str,
+               vcf: str = "", ref: str = "", sample_name: str = ""):
     """`stream_examples_to_cvos(device_encode=True)` with STREAM_WORKERS
     spawned workers on the card, between a zeroed and a read launch
     count, held against the plans the runner kept: as many CVOs, the same
     variants and alt indices, probabilities equal to `predictor` on the
     kept plans batched in the stream's order, the first batch's images
     equal to the plain painter, one launch of the plan form per batch.
-    Returns (numbers, launches, the kept plans in the stream's order)."""
+    With `vcf`, the stream runs inside `run_streaming_pipeline`, which
+    goes on to write that VCF from `ref`'s contigs; the CVOs it handed to
+    stage 3 are kept (copied before stage 3 writes calls into them).
+    Returns (numbers, launches, the kept plans in the stream's order, the
+    CVOs)."""
     from deepvariant_tpu_torch.core.genomics_math import round_gls
+    from deepvariant_tpu_torch.core.types import CallVariantsOutput
     from deepvariant_tpu_torch.ops import pileup_paint as pp
-    from deepvariant_tpu_torch.parallel.stream_pipeline import (
-        stream_examples_to_cvos,
-    )
+    from deepvariant_tpu_torch.parallel import stream_pipeline
 
     cpus = os.cpu_count()
+    numbers = {}
     pp.paint_pileup.launches = 0
-    cvos, stats, _ = stream_examples_to_cvos(
-        options, STREAM_WORKERS, batch_size=BATCH, device_encode=True,
-        plan_predictor_factory=lambda: predictor, device=device)
+    if vcf:
+        seen = []
+        plain_stream = stream_pipeline.stream_examples_to_cvos
+
+        def recording(*args, **kwargs):
+            result = plain_stream(*args, **kwargs)
+            seen.append(([CallVariantsOutput.decode(c.encode())
+                          for c in result[0]], result[1]))
+            return result
+
+        stream_pipeline.stream_examples_to_cvos = recording
+        start = time.time()
+        try:
+            result = stream_pipeline.run_streaming_pipeline(
+                options, vcf, ref, sample_name=sample_name,
+                num_workers=STREAM_WORKERS, batch_size=BATCH,
+                device_encode=True,
+                plan_predictor_factory=lambda: predictor, device=device)
+        finally:
+            stream_pipeline.stream_examples_to_cvos = plain_stream
+        to_vcf_s = time.time() - start
+        (cvos, stats), = seen
+        numbers.update({
+            "to_vcf_s": to_vcf_s,
+            "to_vcf_examples_per_s": len(cvos) / to_vcf_s,
+            "pipeline_postprocess_s": to_vcf_s - stats.wall_seconds,
+            "vcf_records": result["postprocess"]["vcf_records"]})
+        print(f"[{tag}] run_streaming_pipeline to {os.path.basename(vcf)}: "
+              f"{result['postprocess']['vcf_records']} records from "
+              f"{len(cvos)} CVOs in {to_vcf_s:.2f} s, "
+              f"{numbers['to_vcf_examples_per_s']:.1f} examples/s from the "
+              f"BAM to the VCF (the stream {stats.wall_seconds:.2f} s, stage "
+              f"3 {numbers['pipeline_postprocess_s']:.2f} s); {card}; host "
+              f"CPUs {cpus}")
+    else:
+        cvos, stats, _ = stream_pipeline.stream_examples_to_cvos(
+            options, STREAM_WORKERS, batch_size=BATCH, device_encode=True,
+            plan_predictor_factory=lambda: predictor, device=device)
     launches = pp.paint_pileup.launches
     batches = -(-len(cvos) // BATCH)
     print(f"[{tag}] {len(cvos)} CVOs from files with {STREAM_WORKERS} "
@@ -893,7 +960,7 @@ def run_stream(options, kept, predictor, device, card: str, tag: str):
     for cvo in cvos:
         planned = by_locus.get(locus_key(cvo.variant, cvo.alt_allele_indices))
         if planned is None or \
-                planned.variant.encode() != cvo.variant.encode():
+                variant_bytes(planned.variant) != variant_bytes(cvo.variant):
             raise AssertionError(
                 f"{tag}: the stream's CVO at {cvo.variant.reference_name}:"
                 f"{cvo.variant.start} is not among the runner's plans")
@@ -916,11 +983,90 @@ def run_stream(options, kept, predictor, device, card: str, tag: str):
           f"({sum(len(c.alt_allele_indices) == 2 for c in cvos)} "
           "two-alt examples)")
     check_plan_path(predictor, ordered, probs, device, tag)
-    return {"workers": STREAM_WORKERS,
-            "examples_per_s": stats.examples_per_sec,
-            "steady_examples_per_s": stats.steady_state_examples_per_sec,
-            "wall_s": stats.wall_seconds, "batches": batches}, \
-        launches, ordered
+    numbers.update({"workers": STREAM_WORKERS,
+                    "examples_per_s": stats.examples_per_sec,
+                    "steady_examples_per_s":
+                        stats.steady_state_examples_per_sec,
+                    "wall_s": stats.wall_seconds, "batches": batches})
+    return numbers, launches, ordered, cvos
+
+
+def vcf_records(path: str) -> list:
+    """The record lines of a plain or BGZF VCF."""
+    from deepvariant_tpu_torch.io.bgzf import BgzfReader
+
+    if path.endswith(".gz"):
+        with BgzfReader(path) as reader:
+            text = reader.read_all().decode()
+    else:
+        with open(path) as f:
+            text = f.read()
+    return [line for line in text.splitlines()
+            if line and not line.startswith("#")]
+
+
+def check_vcf(vcf: str, cvos, ref: str, sample_name: str, tag: str,
+              card: str) -> dict:
+    """The VCF against stage 3 on the same CVOs in memory: the same
+    bytes, one record per CVO group (none is filtered out at the
+    defaults), and a working `.tbi` (built here where the route did not
+    build one). Returns the in-memory postprocess's numbers."""
+    from deepvariant_tpu_torch.core.types import CallVariantsOutput
+    from deepvariant_tpu_torch.io.fasta import FastaReader
+    from deepvariant_tpu_torch.io.tabix import TabixReader, build_index
+    from deepvariant_tpu_torch.postprocess.pipeline import (
+        group_cvos,
+        postprocess_variants,
+    )
+
+    contigs = FastaReader(ref).contigs
+    again = vcf.replace(".vcf", ".in_memory.vcf")
+    copies = [CallVariantsOutput.decode(c.encode()) for c in cvos]
+    start = time.time()
+    stats = postprocess_variants(copies, again, contigs,
+                                 sample_name=sample_name)
+    seconds = time.time() - start
+    with open(vcf, "rb") as a, open(again, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError(f"{tag}: {vcf} differs from "
+                                 "postprocess_variants on the same CVOs in "
+                                 "memory")
+    order = {c.name: i for i, c in enumerate(contigs)}
+    groups = list(group_cvos(sorted(
+        cvos, key=lambda c: (order[c.variant.reference_name],
+                             c.variant.start, c.variant.end))))
+    records = vcf_records(vcf)
+    starts = [(line.split("\t")[0], int(line.split("\t")[1]) - 1)
+              for line in records]
+    if len(records) != len(groups) or stats["vcf_records"] != len(groups) \
+            or starts != [(g[0].variant.reference_name, g[0].variant.start)
+                          for g in groups]:
+        raise AssertionError(
+            f"{tag}: {len(records)} VCF records for {len(groups)} CVO groups")
+    if not os.path.exists(vcf + ".tbi"):
+        build_index(vcf)
+    # A region around the middle record: the index must return exactly
+    # the records that overlap it.
+    name, pos = starts[len(starts) // 2]
+    lo, hi = max(0, pos - 700), pos + 700
+    want = [line for line, (c, p) in zip(records, starts)
+            if c == name and p < hi and
+            p + len(line.split("\t")[3]) > lo]
+    got = list(TabixReader(vcf).query(name, lo, hi))
+    if got != want or not got:
+        raise AssertionError(f"{tag}: the .tbi returned {len(got)} records "
+                             f"for {name}:{lo}-{hi}, the VCF has "
+                             f"{len(want)} there")
+    print(f"[{tag}] {os.path.basename(vcf)} == postprocess_variants on the "
+          f"same CVOs in memory; {len(records)} records for {len(groups)} "
+          f"CVO groups; the .tbi returns the {len(got)} records of "
+          f"{name}:{lo}-{hi}; stage 3 in memory {seconds:.3f} s, "
+          f"{len(records) / seconds:.1f} records/s "
+          f"({len(cvos) / seconds:.1f} CVOs/s); host CPUs {os.cpu_count()}, "
+          f"beside {card}")
+    return {"vcf_records": len(records), "postprocess_s": seconds,
+            "postprocess_records_per_s": len(records) / seconds,
+            "tbi_query_records": len(got)}
 
 
 def from_files_entry(name: str, predictor, ordered, tag: str,
@@ -962,6 +1108,39 @@ def from_files_entry(name: str, predictor, ordered, tag: str,
     return kernel_entry(name, kernel_ms, plain_ms, bound_ms, bound_by, err)
 
 
+def postprocess_cli(cvos, ref: str, directory: str, tag: str,
+                    card: str) -> dict:
+    """The stream's CVOs written to a TFRecord and postprocessed by the
+    port's CLI (`scripts/postprocess_variants.py` `main`) into a
+    `.vcf.gz` with its `.tbi`, then held by `check_vcf`. Returns the
+    numbers of both stage-3 runs."""
+    from deepvariant_tpu_torch.io.tfrecord import TFRecordWriter
+    from deepvariant_tpu_torch.scripts import postprocess_variants as cli
+
+    cvo_path = os.path.join(directory, "cvo.tfrecord.gz")
+    start = time.time()
+    with TFRecordWriter(cvo_path) as writer:
+        for cvo in cvos:
+            writer.write(cvo.encode())
+    write_s = time.time() - start
+    vcf = os.path.join(directory, "calls.vcf.gz")
+    buf = io.StringIO()
+    start = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--ref", ref, "--infile", cvo_path, "--outfile", vcf])
+    seconds = time.time() - start
+    print(f"[{tag}] postprocess_variants CLI: {buf.getvalue().strip()} in "
+          f"{seconds:.3f} s, .tbi written: {os.path.exists(vcf + '.tbi')}; "
+          f"host CPUs {os.cpu_count()}, beside {card}")
+    if rc != 0:
+        raise AssertionError(f"{tag}: postprocess_variants CLI exited {rc}")
+    numbers = check_vcf(vcf, cvos, ref, cli._sample_name_from_cvos(cvo_path),
+                        tag, card)
+    numbers.update({"cvo_write_s": write_s, "cli_s": seconds,
+                    "cli_records_per_s": numbers["vcf_records"] / seconds})
+    return numbers
+
+
 def phase_stream(tmp: str, model, device, card: str):
     """Phase 7: the WGS preset from files, realigner off. Returns
     (numbers, launches of the plan form on the stream path)."""
@@ -1000,8 +1179,8 @@ def phase_stream(tmp: str, model, device, card: str):
     kept, runner = run_runner(options(), tmp, "files", card, 2 * BATCH)
     predictor = PlanPredictor(model, options().pileup_options,
                               batch_size=BATCH, device=device)
-    stream, launches, _ = run_stream(options(), kept, predictor, device,
-                                     card, "stream")
+    stream, launches, _, _ = run_stream(options(), kept, predictor, device,
+                                        card, "stream")
     numbers = {
         "stream_reads": n_decoded, "stream_reads_decoded_per_s": reads_per_s,
         "stream_candidates": runner["candidates"],
@@ -1099,12 +1278,21 @@ def phase_realigned_stream(tmp: str, model, device, card: str):
           f"plans, with it {len(kept)}; they differ")
     predictor = PlanPredictor(model, options().pileup_options,
                               batch_size=BATCH, device=device)
-    stream, launches, ordered = run_stream(options(), kept, predictor,
-                                           device, card, tag)
+    stream, launches, ordered, cvos = run_stream(options(), kept, predictor,
+                                                 device, card, tag)
+    vcf = postprocess_cli(cvos, paths["ref"], os.path.join(tmp, tag), tag,
+                          card)
+    to_vcf_s = stream["wall_s"] + vcf["cvo_write_s"] + vcf["cli_s"]
+    vcf.update({"to_vcf_s": to_vcf_s,
+                "to_vcf_examples_per_s": len(cvos) / to_vcf_s})
+    print(f"[{tag}] from the BAM to the VCF: the stream {stream['wall_s']:.2f}"
+          f" s, the CVO file {vcf['cvo_write_s']:.3f} s, the CLI "
+          f"{vcf['cli_s']:.3f} s: {vcf['to_vcf_examples_per_s']:.1f} "
+          f"examples/s; {card}; host CPUs {os.cpu_count()}")
     entry = from_files_entry("pileup_paint_plan_from_files_realigned",
                              predictor, ordered, tag, card)
     entry["launches"] = launches
-    numbers = {f"realign_{k}": v for part in (runner, stream)
+    numbers = {f"realign_{k}": v for part in (runner, stream, vcf)
                for k, v in part.items()}
     numbers.update({
         "realign_kb": kb, "realign_windows": tally["windows"],
@@ -1116,30 +1304,67 @@ def phase_realigned_stream(tmp: str, model, device, card: str):
 
 
 def phase_longread_stream(tmp: str, model, device, card: str):
-    """Phase 9: long reads from files, the PACBIO preset without read
-    phasing, in diff mode. Returns (numbers, the path's kernels-line
-    entry with its launches)."""
+    """Phase 9: long reads from files, the PACBIO preset with its
+    defaults (direct read phasing on) and phase info on the candidates,
+    in diff mode, through `run_streaming_pipeline` to a `.vcf.gz`.
+    Returns (numbers, the path's kernels-line entry with its
+    launches)."""
+    import torch
+
     from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.make_examples import core
     from deepvariant_tpu_torch.make_examples.core import MakeExamplesOptions
     from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.phasing.direct_phasing import DirectPhasing
     from deepvariant_tpu_torch.testing import synthetic
 
     tag = "longread-files"
     start = time.time()
     sample = synthetic.synthetic_longread_sample(SEED + 9, LONGREAD_CONTIGS)
     print(f"[{tag}] made the long-read sample in {time.time() - start:.1f} s")
-    paths = write_sample_files(sample, os.path.join(tmp, tag), tag)
+    directory = os.path.join(tmp, tag)
+    paths = write_sample_files(sample, directory, tag)
 
     def options():
-        o = apply_model_preset(MakeExamplesOptions(
+        return apply_model_preset(MakeExamplesOptions(
             reads_filename=paths["reads"], ref_filename=paths["ref"],
-            parse_sam_aux_fields=True, aux_fields_to_keep=["HP"]), "PACBIO")
-        o.phase_reads = False    # direct phasing is not ported
-        return o
+            output_phase_info=True), "PACBIO")
 
-    print(f"[{tag}] PACBIO preset with phase_reads=False, HP tags read "
-          "from the BAM")
-    kept, runner = run_runner(options(), tmp, tag, card, 16)
+    if not options().phase_reads:
+        raise AssertionError("the PACBIO preset left phase_reads off")
+    print(f"[{tag}] PACBIO preset with its defaults (phase_reads on, HP "
+          "tags of the BAM not read) and output_phase_info")
+    # Count what direct phasing does during the in-process run.
+    tally = {"calls": 0, "reads": 0, "phased": 0, "phase_s": 0.0}
+    plain_phase = DirectPhasing.phase_reads
+    plain_process = core.RegionProcessor.process
+
+    def counted_phase(self, candidates, num_reads):
+        phases = plain_phase(self, candidates, num_reads)
+        tally["calls"] += 1
+        tally["reads"] += num_reads
+        tally["phased"] += sum(p != 0 for p in phases)
+        return phases
+
+    def timed_process(self, region):
+        outputs = plain_process(self, region)
+        tally["phase_s"] += outputs.runtimes.get("phase reads", 0.0)
+        return outputs
+
+    DirectPhasing.phase_reads = counted_phase
+    core.RegionProcessor.process = timed_process
+    try:
+        kept, runner = run_runner(options(), tmp, tag, card, 16)
+    finally:
+        DirectPhasing.phase_reads = plain_phase
+        core.RegionProcessor.process = plain_process
+    worker_s = sum(runner["one_worker_stage_s"].values()) + tally["phase_s"]
+    print(f"[{tag}] direct phasing in {tally['calls']} regions gave "
+          f"{tally['phased']} of {tally['reads']} reads a phase; phase reads "
+          f"{tally['phase_s']:.3f} s of the worker's {worker_s:.2f} s of "
+          f"stages; host CPUs {os.cpu_count()}, beside {card}")
+    if tally["phased"] == 0:
+        raise AssertionError(f"{tag}: direct phasing gave no read a phase")
     present = sum(bool(p.plan["alt_present"].any()) for p in kept)
     rows = sum(int(p.plan["alt_row_valid"].sum()) for p in kept)
     print(f"[{tag}] {present} of {len(kept)} plans carry alt-aligned rows "
@@ -1150,16 +1375,41 @@ def phase_longread_stream(tmp: str, model, device, card: str):
                               batch_size=BATCH, device=device)
     if not predictor.diff_mode:
         raise AssertionError(f"{tag}: the predictor is not in diff mode")
-    stream, launches, ordered = run_stream(options(), kept, predictor,
-                                           device, card, tag)
+    vcf = os.path.join(directory, "calls.vcf.gz")
+    stream, launches, ordered, cvos = run_stream(
+        options(), kept, predictor, device, card, tag, vcf=vcf,
+        ref=paths["ref"], sample_name=sample["sample_name"])
+    # The HP plane of the painted images carries the computed phases.
+    hp_plane = list(options().pileup_options.channels).index(7)
+    with torch.inference_mode():
+        hp_pixels = sum(
+            int((predictor.encode(ordered[i:i + BATCH])[..., hp_plane] != 0)
+                .sum()) for i in range(0, len(ordered), BATCH))
+    print(f"[{tag}] the HP plane of the painted images has {hp_pixels} "
+          "non-zero pixels")
+    if hp_pixels == 0:
+        raise AssertionError(f"{tag}: the HP plane is all zero")
+    checked = check_vcf(vcf, cvos, paths["ref"], sample["sample_name"], tag,
+                        card)
+    phased = [line for line in vcf_records(vcf)
+              if "PS" in line.split("\t")[8].split(":")]
+    print(f"[{tag}] {len(phased)} of {checked['vcf_records']} VCF records "
+          "carry a phase set (PS)")
+    if not phased:
+        raise AssertionError(f"{tag}: the VCF carries no PS field")
     entry = from_files_entry("pileup_paint_plan_longread_from_files",
                              predictor, ordered, tag, card)
     entry["launches"] = launches
-    numbers = {f"longread_files_{k}": v for part in (runner, stream)
+    numbers = {f"longread_files_{k}": v for part in (runner, stream, checked)
                for k, v in part.items()}
     numbers.update({"longread_files_plans_with_alt": present,
                     "longread_files_kb":
-                        sum(n for _, n in LONGREAD_CONTIGS) / 1000})
+                        sum(n for _, n in LONGREAD_CONTIGS) / 1000,
+                    "longread_files_phase_reads_s": tally["phase_s"],
+                    "longread_files_reads_phased": tally["phased"],
+                    "longread_files_reads_in_phased_regions": tally["reads"],
+                    "longread_files_hp_pixels": hp_pixels,
+                    "longread_files_vcf_records_with_ps": len(phased)})
     return numbers, entry
 
 

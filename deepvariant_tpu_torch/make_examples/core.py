@@ -19,13 +19,15 @@ Everything here runs on the host; the card paints the plans and runs
 the CNN (calling.plan_predictor). `MakeExamplesOptions` has every field
 of the JAX package's, so options print and pickle alike, but an option
 whose code is not ported yet makes `refuse_unported_options` raise
-NotImplementedError, naming the ROADMAP.md item that brings it: read
-phasing, methylation, the small model, proposed and population VCFs,
-training mode, the candidate sweep, read normalization, gVCF output,
-CRAM input, the alt-aligned pileups that the host painter composes
-(base_channels, rows, single_row), and host-painted examples (an
-examples file without a plan sink). The realigner (realign/), trimmed
-reads and the diff_channels alt planes run, on the host like the rest
+NotImplementedError, naming the ROADMAP.md item that brings it:
+methylation (methylation-aware phasing included), the small model,
+proposed and population VCFs, training mode, the candidate sweep, read
+normalization, gVCF output, CRAM input, the alt-aligned pileups that the
+host painter composes (base_channels, rows, single_row), and
+host-painted examples (an examples file without a plan sink). The
+realigner (realign/), trimmed reads, the diff_channels alt planes and
+direct read phasing (phasing/direct_phasing.py, with its padded region,
+its TSVs and the candidates' phase info) run, on the host like the rest
 of this module.
 """
 
@@ -63,6 +65,10 @@ from deepvariant_tpu_torch.make_examples.variant_caller import (
     VariantCallerOptions,
     VerySensitiveCaller,
 )
+from deepvariant_tpu_torch.phasing.direct_phasing import (
+    DirectPhasing,
+    DirectPhasingOptions,
+)
 from deepvariant_tpu_torch.realign.config import RealignerOptions
 from deepvariant_tpu_torch.realign.realigner import Realigner
 from deepvariant_tpu_torch.utils.resources import ResourceMonitor
@@ -71,6 +77,38 @@ from deepvariant_tpu_torch.utils.resources import ResourceMonitor
 DEFAULT_PARTITION_SIZE = 1000
 DEFAULT_MAX_READS_PER_PARTITION = 1500
 DEFAULT_RANDOM_SEED = 2101079370
+# Allele phase from read phases (make_examples_core.py:2636-2668).
+MIN_DIFF_READS_FOR_ALLELE_PHASE = 3
+MAX_NUM_READS_FOR_OPPOSITE_PHASE = 2
+# --output_phasing_error_stats TSV columns
+# (make_examples_core.py:113-119).
+PHASING_ERROR_STATS_OUTPUT_COLUMNS = (
+    "region",
+    "num_reads_phase_1",
+    "num_reads_phase_2",
+    "num_reads_phase_0",
+    "num_phase_errors",
+)
+
+
+def _phased_genotype_from_counts(phase_1_count: int,
+                                 phase_2_count: int) -> int:
+    """1/2 when that phase wins by more than
+    MIN_DIFF_READS_FOR_ALLELE_PHASE reads with at most
+    MAX_NUM_READS_FOR_OPPOSITE_PHASE opposing, else 0
+    (_get_phased_genotype_from_counts,
+    make_examples_core.py:2636-2668)."""
+    if (phase_1_count > phase_2_count
+            and phase_1_count - phase_2_count
+            > MIN_DIFF_READS_FOR_ALLELE_PHASE
+            and phase_2_count <= MAX_NUM_READS_FOR_OPPOSITE_PHASE):
+        return 1
+    if (phase_2_count > phase_1_count
+            and phase_2_count - phase_1_count
+            > MIN_DIFF_READS_FOR_ALLELE_PHASE
+            and phase_1_count <= MAX_NUM_READS_FOR_OPPOSITE_PHASE):
+        return 2
+    return 0
 
 
 @dataclasses.dataclass
@@ -390,12 +428,6 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
         refuse("candidate sweep mode", "the candidate sweep")
     if o.reads_filename.endswith(".cram"):
         refuse("CRAM input", "CRAM reading")
-    if o.phase_reads or o.enable_methylation_aware_phasing or \
-            o.output_phase_info or \
-            o.output_phasing_error_stats_filename or \
-            o.output_local_read_phasing_filename:
-        refuse("read phasing (phase_reads and its outputs)",
-               "direct phasing")
     if o.enable_methylation_calling or \
             o.enable_methylation_aware_phasing:
         refuse("methylation calling and methylation-aware phasing",
@@ -423,13 +455,13 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
     if o.proposed_variants_filename or \
             o.variant_caller != "very_sensitive_caller":
         refuse("proposed_variants_filename (vcf_candidate_importer)",
-               "VCF, tabix and postprocess_variants")
+               "the VCF inputs")
     if o.population_vcf_filenames:
         refuse("population_vcf_filenames (the allele_frequency channel)",
-               "VCF, tabix and postprocess_variants")
+               "the VCF inputs")
     if o.exclude_variants_vcf_filename:
         refuse("exclude_variants_vcf_filename",
-               "VCF, tabix and postprocess_variants")
+               "the VCF inputs")
     if o.truth_variants_filename or o.confident_regions_filename or \
             o.downsample_classes or o.denovo_regions:
         refuse("training inputs (truth variants, confident regions, "
@@ -470,8 +502,13 @@ class RegionProcessor:
     def __init__(self, options: MakeExamplesOptions):
         refuse_unported_options(options)
         self.options = options
-        # Count of regions processed (make_examples_core.py:1465,2254).
+        # Count of regions processed; the region half of PS_CONTIG
+        # (make_examples_core.py:1465,2254).
         self.region_number = 0
+        # --output_phasing_error_stats / --output_local_read_phasing
+        # rows, flushed by make_examples_runner.
+        self.phasing_error_stats_rows: List[dict] = []
+        self.read_phase_rows: List[tuple] = []
         self.ref_reader = FastaReader(options.ref_filename)
         requirements = ReadRequirements(
             min_mapping_quality=options.min_mapping_quality,
@@ -549,6 +586,11 @@ class RegionProcessor:
             # kept tags now instead of on demand.
             if "HP" in keep or not keep:
                 self.bam_reader.parse_hp_tags(batch)
+        elif self.options.output_phasing_error_stats_filename:
+            # --output_phasing_error_stats compares assigned phases to
+            # the input HP tags, so HP is parsed even without
+            # --parse_sam_aux_fields (make_examples_core.py:309-313).
+            self.bam_reader.parse_hp_tags(batch)
         n = len(batch)
         if self.options.max_reads_per_partition > 0 and \
                 n > self.options.max_reads_per_partition:
@@ -629,6 +671,62 @@ class RegionProcessor:
         )) if include_gvcfs else []
         return candidates, gvcfs, counter
 
+    def _add_phasing_to_candidates(
+        self, dp, candidates, phases, region: Range
+    ) -> int:
+        """Attach ALT_PS / PS_CONTIG info to candidate variants
+        (add_phasing_to_candidate, make_examples_core.py:2700-2786)."""
+        phased_variants = dp.phased_variants()
+        # PS_CONTIG = "{task_id}-{region_number}"
+        # (make_examples_core.py:2726); the region_number half is the
+        # switches-TSV join key for cross-region stitching.
+        phase_contig = f"{self.options.task_id}-{self.region_number}"
+        pv_index = 0
+        n_phased = 0
+        for candidate in candidates:
+            variant = candidate.variant
+            if (pv_index < len(phased_variants)
+                    and variant.start
+                    == phased_variants[pv_index].position):
+                pv = phased_variants[pv_index]
+                alt_alleles = ["REF"] + list(variant.alternate_bases)
+                phased_genotype = [0] * len(alt_alleles)
+                alt_1 = [i for i, a in enumerate(alt_alleles)
+                         if a == pv.phase_1_bases]
+                alt_2 = [i for i, a in enumerate(alt_alleles)
+                         if a == pv.phase_2_bases]
+                if alt_1 and alt_2:
+                    phased_genotype[alt_1[0]] = 1
+                    phased_genotype[alt_2[0]] = 2
+                    variant.info["ALT_PS"] = phased_genotype
+                    variant.info["PS_CONTIG"] = [phase_contig]
+                    variant.info["FIRST_VARIANT_IN_BLOCK"] = [
+                        pv.is_first_in_block
+                    ]
+                    n_phased += 1
+                pv_index += 1
+            else:
+                # Infer allele phases from supporting reads
+                # (infer_allele_phase, make_examples_core.py:2670-2699;
+                # thresholds _get_phased_genotype_from_counts,
+                # :2636-2668 with MIN_DIFF_READS_FOR_ALLELE_PHASE=3,
+                # MAX_NUM_READS_FOR_OPPOSITE_PHASE=2).
+                alleles = ["REF"] + list(variant.alternate_bases)
+                phased_genotype = [0] * len(alleles)
+                supports = {"REF": candidate.ref_support}
+                supports.update(candidate.allele_support)
+                for ai, allele in enumerate(alleles):
+                    counts = [0, 0, 0]
+                    for rid in supports.get(allele, []):
+                        counts[phases[rid]] += 1
+                    phased_genotype[ai] = _phased_genotype_from_counts(
+                        counts[1], counts[2]
+                    )
+                variant.info["ALT_PS"] = phased_genotype
+                variant.info["PS_CONTIG"] = [phase_contig]
+                variant.info["FIRST_VARIANT_IN_BLOCK"] = [False]
+        return n_phased
+
     # -- main ---------------------------------------------------------------
 
     @staticmethod
@@ -665,10 +763,119 @@ class RegionProcessor:
         runtimes["realignment"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        candidates, _, _ = self.candidates_in_region(region, batch, False)
+        # With read phasing on, candidates are called over a region
+        # expanded by phase_reads_region_padding_pct so edge reads get
+        # phasing evidence from just-outside candidates; the padded
+        # candidates are filtered back to the partition after phasing
+        # (make_examples_core.py:2308-2325, 3164-3167).
+        padded_region = None
+        padding_pct = self.options.phase_reads_region_padding_pct
+        if self.options.phase_reads and padding_pct > 0:
+            pad = int((region.end - region.start) * padding_pct / 100)
+            contig_len = self.ref_reader.contig_length(
+                region.reference_name
+            )
+            padded_region = Range(
+                region.reference_name,
+                max(0, region.start - pad),
+                min(contig_len, region.end + pad),
+            )
+        if padded_region is not None:
+            candidates, _, _ = self.candidates_in_region(
+                padded_region, batch, False,
+                left_padding=region.start - padded_region.start,
+                right_padding=padded_region.end - region.end,
+            )
+        else:
+            candidates, _, _ = self.candidates_in_region(
+                region, batch, False
+            )
         if candidates:
             candidates = self._apply_candidate_filters(candidates, batch)
         runtimes["find candidates"] = time.perf_counter() - t0
+
+        phaseable = candidates
+        if self.options.phase_reads and candidates:
+            # --phase_max_candidates region gate: skip phasing when
+            # the region has absurdly many candidates
+            # (make_examples_core.py:3021-3029).
+            if (self.options.phase_max_candidates
+                    and len(candidates)
+                    > self.options.phase_max_candidates):
+                phaseable = None
+        if self.options.phase_reads and candidates and phaseable:
+            t0 = time.perf_counter()
+            # --min_alleles_to_phase is the per-read allele threshold
+            # inside DirectPhasing (make_examples_options.py:1165-1167),
+            # NOT a region gate.
+            dp = DirectPhasing(DirectPhasingOptions(
+                min_alleles_to_phase=self.options.min_alleles_to_phase,
+            ))
+            phases = dp.phase_reads(candidates, len(batch))
+            if self.options.output_phasing_error_stats_filename:
+                # Compare assigned phases against the input HP tags
+                # (make_examples_core.py:3083-3148). batch.hp still
+                # holds the original tags here.
+                stats = {
+                    "region": "%s:%d-%d" % (
+                        region.reference_name, region.start, region.end
+                    ),
+                    "num_phase_errors": 0,
+                    "num_reads_phase_0": 0,
+                    "num_reads_phase_1": 0,
+                    "num_reads_phase_2": 0,
+                }
+                original_hp = batch.hp
+                for rid, read_phase in enumerate(phases):
+                    original = int(original_hp[rid]) \
+                        if rid < len(original_hp) else 0
+                    if (original != read_phase and read_phase != 0
+                            and original != 0):
+                        stats["num_phase_errors"] += 1
+                    stats[f"num_reads_phase_{min(read_phase, 2)}"] += 1
+                # A whole-block phase swap is not an error: flip when
+                # the error count exceeds half the phased reads
+                # (make_examples_core.py:3128-3141).
+                n_phased_reads = (stats["num_reads_phase_1"]
+                                  + stats["num_reads_phase_2"])
+                if stats["num_phase_errors"] > n_phased_reads / 2:
+                    stats["num_phase_errors"] = (
+                        n_phased_reads - stats["num_phase_errors"]
+                    )
+                self.phasing_error_stats_rows.append(stats)
+            if self.options.output_local_read_phasing_filename:
+                # --output_local_read_phasing TSV rows
+                # (write_read_phase, make_examples_core.py:1355-1362).
+                flags = batch.flag
+                for rid, read_phase in enumerate(phases):
+                    # Unpaired (single-end / long-read) fragments are
+                    # read 0, like paired first-of-pair reads
+                    # (sam_reader.cc:785).
+                    read_number = 0 if (
+                        flags[rid] & 0x40 or not flags[rid] & 0x1
+                    ) else 1
+                    self.read_phase_rows.append((
+                        f"{batch.name[rid]}/{read_number}",
+                        int(read_phase), self.region_number,
+                    ))
+            batch.hp = np.asarray(phases, np.int8)
+            if self.options.output_phase_info:
+                # ALT_PS/PS_CONTIG candidate info is only attached
+                # under --output_phase_info
+                # (make_examples_core.py:3126-3128).
+                self._add_phasing_to_candidates(
+                    dp, candidates, phases, region
+                )
+            runtimes["phase reads"] = time.perf_counter() - t0
+        if padded_region is not None and candidates:
+            # Padded-region candidates only contribute phasing
+            # evidence; output keeps candidates starting inside the
+            # partition (filter_candidates_by_region,
+            # make_examples_core.py:2579-2608).
+            candidates = [
+                c for c in candidates
+                if region.start <= c.variant.start < region.end
+            ]
 
         t0 = time.perf_counter()
         plans: List = []
@@ -899,6 +1106,28 @@ def make_examples_runner(
         )
     if runtime_by_region_path:
         _write_runtime_tsv(runtime_by_region_path, runtime_rows)
+    if options.output_phasing_error_stats_filename:
+        # TSV with the reference's header/column order
+        # (PHASING_ERROR_STATS_OUTPUT_COLUMNS,
+        # make_examples_core.py:113,1248-1256).
+        with open(options.output_phasing_error_stats_filename,
+                  "w") as f:
+            f.write("\t".join(PHASING_ERROR_STATS_OUTPUT_COLUMNS)
+                    + "\n")
+            for stats in processor.phasing_error_stats_rows:
+                f.write("\t".join(
+                    str(stats.get(k, "NA"))
+                    for k in PHASING_ERROR_STATS_OUTPUT_COLUMNS
+                ) + "\n")
+    if options.output_local_read_phasing_filename:
+        # TSV (fragment_name, phase, region_order)
+        # (READ_PHASES_OUTPUT_COLUMNS,
+        # make_examples_core.py:111,1258-1266).
+        with open(options.output_local_read_phasing_filename,
+                  "w") as f:
+            f.write("fragment_name\tphase\tregion_order\n")
+            for key, read_phase, region_n in processor.read_phase_rows:
+                f.write(f"{key}\t{read_phase}\t{region_n}\n")
     if options.output_sitelist and options.examples_filename:
         # --output_sitelist: candidate positions next to the examples
         # (make_examples_core.py sitelist output).

@@ -6,11 +6,9 @@ in the model's `model.example_info.json`, `flags_for_calling`).
 `apply_pileup_preset` sets the `PileupOptions` half (channels,
 alt-aligned pileup mode, width, height, haplotype sorting);
 `apply_model_preset` sets a whole `MakeExamplesOptions` (that half plus
-phasing, realigner, partition sizes, candidate thresholds). WGS, WES,
-HYBRID_PACBIO_ILLUMINA and RNASEQ run through the port's stage 1 as
-they are; PACBIO, MASSEQ and ONT_R104 run with `phase_reads=False`,
-because direct phasing is not ported and `make_examples.core` refuses
-`phase_reads` until it is.
+phasing, realigner, partition sizes, candidate thresholds). Every
+preset runs through the port's stage 1 as it is, the long-read presets
+with direct read phasing (`phase_reads=True`).
 
 Channel enums (deepvariant.proto:1287-1342): 1-6 the base six,
 7 haplotype_tag, 19 insert_size, 26 supplementary_alignment; the two

@@ -16,10 +16,12 @@ their task_id owns (the round-robin rule of make_examples_core.py:881),
 the painter is bit-exact against the JAX package's encoders, and
 per-example probabilities do not depend on batch boundaries.
 
+`run_streaming_pipeline` goes on to the VCF: `postprocess_variants`
+(stage 3, on the host) on the CVOs in memory.
+
 Not ported, and raising: host-encode mode (workers painting tf.Examples
 need the host painter), gVCF records and small-model CVOs through the
-queues, and `run_streaming_pipeline` (needs postprocess_variants, stage
-3).
+queues.
 """
 
 from __future__ import annotations
@@ -263,9 +265,60 @@ def stream_examples_to_cvos(
     return cvos, stats, None
 
 
-def run_streaming_pipeline(*args, **kwargs) -> Dict:
-    """Full fused run to a VCF: needs postprocess_variants (stage 3)."""
-    raise NotImplementedError(
-        "run_streaming_pipeline needs postprocess_variants, which is not "
-        "ported yet; ROADMAP.md Queue 1 item 3 (VCF, tabix and "
-        "postprocess_variants)")
+def run_streaming_pipeline(
+    options,
+    output_vcf: str,
+    ref_path: str,
+    variables=None,
+    model=None,
+    sample_name: str = "default",
+    num_workers: int = 2,
+    batch_size: int = 512,
+    postprocess_kwargs: Optional[Dict] = None,
+    predictor_factory=None,
+    device_encode: bool = False,
+    plan_predictor_factory=None,
+    output_gvcf: str = "",
+    device: Union[str, torch.device] = "cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> Dict:
+    """Full fused run: reads file -> streamed plans -> card -> VCF.
+
+    `stream_examples_to_cvos` (device-encode mode, `device` and `dtype`
+    as there: the card by default, and a missing card raises), then
+    `postprocess_variants` on the CVOs in memory, on the host. An output
+    ending in `.gz` is BGZF; its tabix index is the caller's
+    (`io.tabix.build_index`), as in the JAX package. Host-encode mode
+    (`device_encode=False`, `variables`, `predictor_factory`) and
+    `output_gvcf` raise NotImplementedError as the stream does."""
+    from deepvariant_tpu_torch.io.fasta import FastaReader
+    from deepvariant_tpu_torch.postprocess.pipeline import (
+        postprocess_variants,
+    )
+
+    cvos, stats, _ = stream_examples_to_cvos(
+        options, num_workers, variables,
+        model=model, batch_size=batch_size,
+        predictor_factory=predictor_factory,
+        device_encode=device_encode,
+        plan_predictor_factory=plan_predictor_factory,
+        want_gvcf=bool(output_gvcf),
+        device=device, dtype=dtype,
+    )
+    ref_reader = FastaReader(ref_path)
+    pp = postprocess_variants(
+        cvos, output_vcf, ref_reader.contigs, sample_name=sample_name,
+        **dict(postprocess_kwargs or {}),
+    )
+    return {
+        "stream_examples": stats.num_examples,
+        "stream_examples_per_sec": round(stats.examples_per_sec, 2),
+        "stream_steady_state_examples_per_sec": round(
+            stats.steady_state_examples_per_sec, 2
+        ),
+        "stream_wall_seconds": round(stats.wall_seconds, 3),
+        "stream_device_encode": device_encode,
+        "stream_small_model_cvos": stats.num_small_model_cvos,
+        "stream_gvcf_records": stats.num_gvcf_records,
+        "postprocess": pp,
+    }

@@ -439,12 +439,14 @@ def test_host_composed_alt_modes_still_raise(short_paths, mode):
 
 @pytest.mark.parametrize("preset", ["PACBIO", "MASSEQ", "ONT_R104"])
 def test_long_read_presets_need_only_direct_phasing(long_paths, preset):
-    """With its defaults a long-read preset still raises, naming direct
-    phasing and nothing else; with phase_reads off it is accepted."""
+    """A long-read preset needed direct phasing and nothing else: with it
+    ported, the preset is accepted with its defaults (phase_reads on);
+    methylation-aware phasing still raises, naming methylation."""
     options = preset_options(PORT, long_paths, preset)
+    assert options.phase_reads
+    tcore.RegionProcessor(options)
+    options.enable_methylation_aware_phasing = True
     with pytest.raises(NotImplementedError) as raised:
         tcore.RegionProcessor(options)
-    assert "direct phasing" in str(raised.value)
+    assert "methylation" in str(raised.value)
     assert "alt_aligned" not in str(raised.value)
-    options.phase_reads = False
-    tcore.RegionProcessor(options)

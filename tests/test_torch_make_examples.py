@@ -202,10 +202,6 @@ def test_model_presets_match_jax(model_type):
 
 UNPORTED = {
     "cram": dict(reads_filename="reads.cram"),
-    "phase_reads": dict(phase_reads=True),
-    "phase-info": dict(output_phase_info=True),
-    "phasing-stats": dict(output_phasing_error_stats_filename="s.tsv"),
-    "read-phasing-out": dict(output_local_read_phasing_filename="p.tsv"),
     "methylation-calling": dict(enable_methylation_calling=True),
     "methylation-phasing": dict(enable_methylation_aware_phasing=True),
     "methylation-aux": dict(parse_sam_aux_fields=True,
@@ -262,9 +258,25 @@ def test_aux_driven_channels_raise(paths, channel):
 
 @pytest.mark.parametrize("preset", ["PACBIO", "MASSEQ", "ONT_R104"])
 def test_long_read_presets_raise_until_phasing_is_ported(paths, preset):
-    options = tpresets.apply_model_preset(wgs_options(PORT, paths), preset)
-    with pytest.raises(NotImplementedError, match="phasing"):
-        tcore.RegionProcessor(options)
+    """Direct phasing is ported: a long-read preset with its defaults
+    (phase_reads on) no longer raises, and one region of this short-read
+    sample goes through the phasing branch to the JAX processor's
+    candidates and plans."""
+    outs = []
+    for package, core, presets in ((JAX, jcore, jpresets),
+                                   (PORT, tcore, tpresets)):
+        options = presets.apply_model_preset(wgs_options(package, paths),
+                                             preset)
+        assert options.phase_reads
+        processor = core.RegionProcessor(options)
+        processor.plan_mode = True
+        types = jt if package == JAX else tt
+        outs.append(processor.process(types.Range("chr1", 1000, 2000)))
+    want, got = outs
+    assert [c.variant.encode() for c in got.candidates] == \
+        [c.variant.encode() for c in want.candidates]
+    assert_planned_equal(got.plans, want.plans)
+    assert len(got.plans) > 5 and "phase reads" in got.runtimes
 
 
 def test_sinks_without_ported_code_raise(paths, tmp_path):

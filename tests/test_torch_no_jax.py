@@ -20,7 +20,7 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "core.cigar", "core.genomics_math", "core.protowire", "core.ranges",
     "core.sharded_files", "core.types",
     "io.bam", "io.bam_writer", "io.bgzf", "io.examples", "io.fasta",
-    "io.flax_msgpack", "io.tfrecord",
+    "io.flax_msgpack", "io.tabix", "io.tfrecord", "io.vcf",
     "make_examples.allele_counter", "make_examples.alt_aligned",
     "make_examples.core", "make_examples.examples_builder",
     "make_examples.pileup", "make_examples.pileup_device",
@@ -29,9 +29,12 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "models.checkpoint", "models.inception_v3",
     "ops._build", "ops.pileup_paint",
     "parallel.stream_pipeline",
+    "phasing.direct_phasing",
+    "postprocess.genotype", "postprocess.haplotypes", "postprocess.merge",
+    "postprocess.multiallelic_model", "postprocess.pipeline",
     "realign.config", "realign.debruijn_graph", "realign.fast_pass_aligner",
     "realign.realigner", "realign.ssw", "realign.window_selector",
-    "scripts.call_variants",
+    "scripts.call_variants", "scripts.postprocess_variants",
     "testing.synthetic",
     "utils.resources",
 ))

@@ -202,16 +202,17 @@ def test_unported_modes_raise(paths, model):
     with pytest.raises(ValueError, match="plan_predictor_factory or model"):
         sp.stream_examples_to_cvos(options, 2, device="cpu",
                                    device_encode=True)
-    with pytest.raises(NotImplementedError, match="postprocess_variants"):
-        sp.run_streaming_pipeline(options, "out.vcf", paths["ref"])
+    with pytest.raises(NotImplementedError, match="host painter"):
+        sp.run_streaming_pipeline(options, "out.vcf", paths["ref"],
+                                  model=model, device="cpu")
 
 
 def test_a_failing_worker_fails_the_stream(paths, model):
     """An unported option reaches the worker, which refuses it; the
     stream raises with the worker's message instead of hanging."""
     options = wgs_options(PORT, paths, regions=["chr2:200-600"])
-    options.phase_reads = True
-    with pytest.raises(RuntimeError, match="phase_reads"):
+    options.normalize_reads = True
+    with pytest.raises(RuntimeError, match="normalize_reads"):
         sp.stream_examples_to_cvos(options, 2, model=model, batch_size=BATCH,
                                    device_encode=True, device="cpu",
                                    dtype=torch.float32)
