@@ -70,6 +70,8 @@ Phases:
      Fails if no read got a phase, if the HP plane of the painted images
      is all zero, if no plan has alt_present set, or if no VCF record
      carries a phase set (PS). Prints the worker's "phase reads" seconds.
+     Its CNN's het bias is raised by HET_BIAS: the seeded weights call
+     het or hom-alt by a hair, and a phase set needs a het call.
      In phases 8 and 9 the VCF must equal, byte for byte, what
      postprocess_variants writes from the same CVOs in memory, hold one
      record per CVO group, and its .tbi must return the records of a
@@ -91,6 +93,7 @@ exits non-zero, printing no result, when no CUDA card is available.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import math
@@ -163,6 +166,8 @@ REALIGN_CONTIGS = (("chr1", 26_000), ("chr2", 14_000))
 REALIGN_VARIANT_SPACING = 400
 # Phase 9's sample: 20x of single-end reads of about 3 kb.
 LONGREAD_CONTIGS = (("chr1", 50_000), ("chr2", 25_000))
+# Added to phase 9's het logit (see phase_longread_stream).
+HET_BIAS = 0.5
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -1371,6 +1376,14 @@ def phase_longread_stream(tmp: str, model, device, card: str):
           f"({rows} rows of reads realigned to an alt haplotype)")
     if present == 0 or rows == 0:
         raise AssertionError(f"{tag}: no plan has alt_present set")
+    # The seeded weights give nearly uniform probabilities on these
+    # pileups (about 0.29, 0.36, 0.35), so whether het or hom-alt wins
+    # flips with the device's rounding (every call het on the CPU,
+    # none on the card). A phase set needs a het call: the head's het
+    # bias is raised by HET_BIAS, far above that spread.
+    model = copy.deepcopy(model)
+    with torch.no_grad():
+        model.classification.bias[1] += HET_BIAS
     predictor = PlanPredictor(model, options().pileup_options,
                               batch_size=BATCH, device=device)
     if not predictor.diff_mode:
@@ -1391,10 +1404,15 @@ def phase_longread_stream(tmp: str, model, device, card: str):
         raise AssertionError(f"{tag}: the HP plane is all zero")
     checked = check_vcf(vcf, cvos, paths["ref"], sample["sample_name"], tag,
                         card)
-    phased = [line for line in vcf_records(vcf)
+    records = vcf_records(vcf)
+    phased = [line for line in records
               if "PS" in line.split("\t")[8].split(":")]
+    genotypes = {}
+    for line in records:
+        gt = line.split("\t")[9].split(":")[0]
+        genotypes[gt] = genotypes.get(gt, 0) + 1
     print(f"[{tag}] {len(phased)} of {checked['vcf_records']} VCF records "
-          "carry a phase set (PS)")
+          f"carry a phase set (PS); genotypes {sorted(genotypes.items())}")
     if not phased:
         raise AssertionError(f"{tag}: the VCF carries no PS field")
     entry = from_files_entry("pileup_paint_plan_longread_from_files",

@@ -794,16 +794,12 @@ class RegionProcessor:
             candidates = self._apply_candidate_filters(candidates, batch)
         runtimes["find candidates"] = time.perf_counter() - t0
 
-        phaseable = candidates
-        if self.options.phase_reads and candidates:
-            # --phase_max_candidates region gate: skip phasing when
-            # the region has absurdly many candidates
-            # (make_examples_core.py:3021-3029).
-            if (self.options.phase_max_candidates
-                    and len(candidates)
-                    > self.options.phase_max_candidates):
-                phaseable = None
-        if self.options.phase_reads and candidates and phaseable:
+        # --phase_max_candidates region gate: skip phasing when the
+        # region has absurdly many candidates
+        # (make_examples_core.py:3021-3029).
+        too_many = bool(self.options.phase_max_candidates) and \
+            len(candidates) > self.options.phase_max_candidates
+        if self.options.phase_reads and candidates and not too_many:
             t0 = time.perf_counter()
             # --min_alleles_to_phase is the per-read allele threshold
             # inside DirectPhasing (make_examples_options.py:1165-1167),
