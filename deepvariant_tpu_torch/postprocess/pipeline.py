@@ -1,4 +1,4 @@
-"""Stage 3 driver: CVOs -> finished VCF.
+"""Stage 3: CVOs -> finished VCF.
 
 The port's copy of `deepvariant_tpu.postprocess.pipeline`, on the host in
 Python as there: the same sort, grouping, merge, genotype and phase-set
@@ -7,7 +7,7 @@ stitching, so the same VCF bytes from the same CVOs. The gVCF merge
 `merge_variants_and_nonvariants`, `_read_nonvariants`) is not ported and
 raises NotImplementedError naming ROADMAP.md Queue 1 item 3 (gVCF).
 
-Mirrors the reference's postprocess_variants.py driver flow
+Mirrors the reference's postprocess_variants.py main flow
 (:1741-2230): sort + group CVOs by locus, merge multiallelics, resolve
 genotypes, resolve conflicting overlapping variants, write the VCF.
 
@@ -411,7 +411,7 @@ def _read_nonvariants(path, contigs: Sequence[ContigInfo]):
 
 
 # ---------------------------------------------------------------------------
-# Partition-parallel driver (postprocess_variants.py:1887
+# Partition-parallel stage 3 (postprocess_variants.py:1887
 # _process_partitions_in_parallel)
 # ---------------------------------------------------------------------------
 
