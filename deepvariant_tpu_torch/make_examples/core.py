@@ -7,11 +7,13 @@ make_examples_core.py):
     (regions_to_process, make_examples_core.py:799-889);
   * per-region pipeline: BAM query with reservoir downsampling
     (region_reads_norealign, :2408-2449) -> optional local-assembly
-    realignment (:2479) -> allele counting + very-sensitive calling
-    (candidates_in_region, :2832-2990) -> device-encode plans, one per
+    realignment (:2479) -> allele counting + very-sensitive calling or
+    the proposed-VCF importer + gVCF (candidates_in_region, :2832-2990)
+    -> exclude and population-AF hooks -> device-encode plans, one per
     (candidate, alt combination);
-  * OutputsWriter: the plan sink and the candidates TFRecord, and the
-    example_info.json data contract (:3755-3774);
+  * OutputsWriter: the plan sink, the candidates and gVCF TFRecords (or
+    the gVCF sink), and the example_info.json data contract
+    (:3755-3774);
   * make_examples_runner main loop (:3481) with per-region runtime
     accounting (runtime_by_region TSV, :2248-2399).
 
@@ -21,14 +23,14 @@ of the JAX package's, so options print and pickle alike, but an option
 whose code is not ported yet makes `refuse_unported_options` raise
 NotImplementedError, naming the ROADMAP.md item that brings it:
 methylation (methylation-aware phasing included), the small model,
-proposed and population VCFs, training mode, the candidate sweep, read
-normalization, gVCF output, CRAM input, the alt-aligned pileups that the
-host painter composes (base_channels, rows, single_row), and
-host-painted examples (an examples file without a plan sink). The
-realigner (realign/), trimmed reads, the diff_channels alt planes and
-direct read phasing (phasing/direct_phasing.py, with its padded region,
-its TSVs and the candidates' phase info) run, on the host like the rest
-of this module.
+training mode, the candidate sweep, read normalization, CRAM input, the
+alt-aligned pileups that the host painter composes (base_channels, rows,
+single_row), and host-painted examples (an examples file without a plan
+sink). The realigner (realign/), trimmed reads, the diff_channels alt
+planes, direct read phasing (phasing/direct_phasing.py, with its padded
+region, its TSVs and the candidates' phase info), gVCF records, and the
+proposed, population and exclude VCFs run, on the host like the rest of
+this module.
 """
 
 from __future__ import annotations
@@ -393,6 +395,55 @@ def find_ref_n_regions(ref_reader, min_region_len: int) -> List[Range]:
     return out
 
 
+def fetch_vcf_positions(
+    vcf_paths: Sequence[str],
+    contigs: Sequence[ContigInfo],
+    calling_regions: Optional[RangeSet],
+) -> List[Range]:
+    """Positions of variants inside the calling space
+    (make_examples_core.py:891-920)."""
+    regions = RangeSet.from_contigs(contigs)
+    if calling_regions:
+        regions = regions.intersection(calling_regions)
+    positions: List[Range] = []
+    from deepvariant_tpu_torch.io.vcf import VcfReader
+
+    for path in vcf_paths:
+        reader = VcfReader(path)
+        for region in regions:
+            for variant in reader.query(region):
+                positions.append(Range(
+                    variant.reference_name, variant.start, variant.end
+                ))
+    return positions
+
+
+def filter_regions_by_vcf(
+    regions: Sequence[Range], variant_positions: Sequence[Range]
+) -> List[Range]:
+    """Keep only regions containing at least one variant START
+    (make_examples_core.py:923-972; a variant spanning several regions
+    belongs to the one containing its start), preserving input order.
+    Vectorized: per-contig searchsorted over sorted variant starts."""
+    starts_by_chrom: Dict[str, np.ndarray] = {}
+    for chrom in {v.reference_name for v in variant_positions}:
+        starts_by_chrom[chrom] = np.sort(np.array(
+            [v.start for v in variant_positions
+             if v.reference_name == chrom],
+            dtype=np.int64,
+        ))
+    out = []
+    for region in regions:
+        starts = starts_by_chrom.get(region.reference_name)
+        if starts is None:
+            continue
+        lo = np.searchsorted(starts, region.start, side="left")
+        hi = np.searchsorted(starts, region.end, side="left")
+        if hi > lo:
+            out.append(region)
+    return out
+
+
 def reservoir_sample_indices(
     n: int, k: int, rng: np.random.RandomState
 ) -> np.ndarray:
@@ -452,16 +503,6 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
             o.small_model_vaf_context_window_size:
         refuse("the small model", "small_model",
                queue="ROADMAP.md Queue 1 item 6")
-    if o.proposed_variants_filename or \
-            o.variant_caller != "very_sensitive_caller":
-        refuse("proposed_variants_filename (vcf_candidate_importer)",
-               "the VCF inputs")
-    if o.population_vcf_filenames:
-        refuse("population_vcf_filenames (the allele_frequency channel)",
-               "the VCF inputs")
-    if o.exclude_variants_vcf_filename:
-        refuse("exclude_variants_vcf_filename",
-               "the VCF inputs")
     if o.truth_variants_filename or o.confident_regions_filename or \
             o.downsample_classes or o.denovo_regions:
         refuse("training inputs (truth variants, confident regions, "
@@ -469,8 +510,6 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
                "training mode and the labelers")
     if o.normalize_reads:
         refuse("normalize_reads", "read normalization")
-    if o.gvcf_filename:
-        refuse("gvcf_filename", "gVCF")
     if p.alt_aligned_pileup not in ("", "none", "diff_channels"):
         # base_channels, rows and single_row are composed from whole
         # host-painted alt images (alt_aligned.compose_alt_aligned).
@@ -543,16 +582,25 @@ class RegionProcessor:
         options.pileup_options.min_base_quality = (
             options.min_base_quality
         )
-        if options.create_complex_alleles:
-            # --create_complex_alleles feeds the caller-level flag
-            # (make_examples_core.py:243).
-            options.variant_caller_options = dataclasses.replace(
+        if options.proposed_variants_filename:
+            from deepvariant_tpu_torch.make_examples.vcf_candidate_importer \
+                import VcfCandidateImporter
+
+            self.caller = VcfCandidateImporter(
                 options.variant_caller_options,
-                create_complex_alleles=True,
+                options.proposed_variants_filename,
             )
-        self.caller = VerySensitiveCaller(
-            options.variant_caller_options
-        )
+        else:
+            if options.create_complex_alleles:
+                # --create_complex_alleles feeds the caller-level flag
+                # (make_examples_core.py:243).
+                options.variant_caller_options = dataclasses.replace(
+                    options.variant_caller_options,
+                    create_complex_alleles=True,
+                )
+            self.caller = VerySensitiveCaller(
+                options.variant_caller_options
+            )
         self.examples_builder = ExamplesBuilder(
             self.ref_reader,
             options.pileup_options,
@@ -566,6 +614,9 @@ class RegionProcessor:
         # (row tensors) instead of host-painted images; set by
         # make_examples_runner(plan_sink=...).
         self.plan_mode = False
+        # Fused-stream gVCF: compute ref blocks even with no gvcf
+        # TFRecord (records flow to the stream gvcf_sink instead).
+        self.force_gvcfs = False
         # --select_variant_types filter set (make_examples_core.py
         # select_variants_types semantics): names among
         # {snps, indels, multi-allelics, all}.
@@ -574,6 +625,24 @@ class RegionProcessor:
             names = set(options.select_variant_types.split())
             if "all" not in names:
                 self._select_variant_types = names
+        # --exclude_variants_vcf_filename: drop candidates whose site
+        # appears in this VCF with AF above the threshold.
+        self._exclude_variants_reader = None
+        if options.exclude_variants_vcf_filename:
+            from deepvariant_tpu_torch.io.vcf import VcfReader
+
+            self._exclude_variants_reader = VcfReader(
+                options.exclude_variants_vcf_filename
+            )
+        self.population_vcf_readers = None
+        if options.population_vcf_filenames:
+            from deepvariant_tpu_torch.make_examples.allele_frequency import (
+                make_population_vcf_readers,
+            )
+
+            self.population_vcf_readers = make_population_vcf_readers(
+                options.population_vcf_filenames
+            )
 
     # -- reads --------------------------------------------------------------
 
@@ -660,8 +729,10 @@ class RegionProcessor:
         self, region: Range, batch: ReadBatch, include_gvcfs: bool,
         left_padding: int = 0, right_padding: int = 0,
     ) -> Tuple[List[DeepVariantCall], List[Variant], AlleleCounter]:
-        """Candidates over `region`; the gVCF list stays empty
-        (`include_gvcfs` raises: the gVCF model is not ported)."""
+        """Candidates + gvcf over `region`; when region is the
+        phasing-padded expansion, left/right_padding crop the gvcf back
+        to the unpadded partition (candidates stay padded and are
+        filtered after phasing; make_examples_core.py:2877,2961-2963)."""
         counter = self._allele_counter(region)
         counter.add_batch(batch)
         candidates = self.caller.calls_in_region(counter)
@@ -740,8 +811,9 @@ class RegionProcessor:
         return "indels"
 
     def _apply_candidate_filters(self, candidates, batch):
-        """--select_variant_types candidate post-filter
-        (make_examples_core.py select_variants)."""
+        """--select_variant_types / --exclude_variants_vcf_filename
+        candidate post-filters (make_examples_core.py select_variants
+        + exclude-variants hooks)."""
         out = candidates
         if self._select_variant_types is not None:
             out = [
@@ -749,6 +821,31 @@ class RegionProcessor:
                 if self._variant_type_name(c.variant)
                 in self._select_variant_types
             ]
+        if self._exclude_variants_reader is not None and out:
+            threshold = self.options.exclude_variants_af_threshold
+            kept = []
+            for c in out:
+                v = c.variant
+                drop = False
+                for rec in self._exclude_variants_reader.query(
+                    Range(v.reference_name, v.start, v.end)
+                ):
+                    if rec.start != v.start or \
+                            rec.reference_bases != v.reference_bases:
+                        continue
+                    afs = rec.info.get("AF", [])
+                    if any(
+                        alt in rec.alternate_bases
+                        and float(afs[rec.alternate_bases.index(alt)])
+                        >= threshold
+                        for alt in v.alternate_bases
+                        if afs and alt in rec.alternate_bases
+                    ):
+                        drop = True
+                        break
+                if not drop:
+                    kept.append(c)
+            out = kept
         return out
 
     def process(self, region: Range) -> RegionOutputs:
@@ -763,11 +860,14 @@ class RegionProcessor:
         runtimes["realignment"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        include_gvcfs = bool(self.options.gvcf_filename) \
+            or self.force_gvcfs
         # With read phasing on, candidates are called over a region
         # expanded by phase_reads_region_padding_pct so edge reads get
         # phasing evidence from just-outside candidates; the padded
         # candidates are filtered back to the partition after phasing
-        # (make_examples_core.py:2308-2325, 3164-3167).
+        # (make_examples_core.py:2308-2325, 3164-3167) and the gvcf is
+        # cropped at generation time.
         padded_region = None
         padding_pct = self.options.phase_reads_region_padding_pct
         if self.options.phase_reads and padding_pct > 0:
@@ -781,18 +881,30 @@ class RegionProcessor:
                 min(contig_len, region.end + pad),
             )
         if padded_region is not None:
-            candidates, _, _ = self.candidates_in_region(
-                padded_region, batch, False,
+            candidates, gvcfs, _ = self.candidates_in_region(
+                padded_region, batch, include_gvcfs,
                 left_padding=region.start - padded_region.start,
                 right_padding=padded_region.end - region.end,
             )
         else:
-            candidates, _, _ = self.candidates_in_region(
-                region, batch, False
+            candidates, gvcfs, _ = self.candidates_in_region(
+                region, batch, include_gvcfs
             )
         if candidates:
             candidates = self._apply_candidate_filters(candidates, batch)
         runtimes["find candidates"] = time.perf_counter() - t0
+
+        if self.population_vcf_readers is not None and candidates:
+            # Population AF hook (make_examples_core.py:2380-2389).
+            from deepvariant_tpu_torch.make_examples.allele_frequency import (
+                add_allele_frequencies_to_candidates,
+            )
+
+            candidates = list(add_allele_frequencies_to_candidates(
+                candidates,
+                self.population_vcf_readers[region.reference_name],
+                self.ref_reader,
+            ))
 
         # --phase_max_candidates region gate: skip phasing when the
         # region has absurdly many candidates
@@ -887,24 +999,27 @@ class RegionProcessor:
             plans.extend(build(dv_call, batch))
         runtimes["make pileup images"] = time.perf_counter() - t0
         candidates.sort(key=lambda c: c.variant.start)
-        return RegionOutputs(region, candidates, [], [], runtimes,
+        return RegionOutputs(region, candidates, [], gvcfs, runtimes,
                              plans=plans)
 
 
 class OutputsWriter:
-    """The plan sink and the candidates TFRecord
+    """The plan sink and the candidates and gVCF TFRecords
     (make_examples_core.py:1182).
 
     `plan_sink(PlannedExample)` receives each device-encode payload. An
     examples path, when given, only anchors the sidecars
     (example_info.json, run_info.json): the examples TFRecord itself
-    needs the host painter and stays empty.
+    needs the host painter and stays empty. `gvcf_sink(Variant)`, when
+    given, receives the reference blocks in place of the gVCF TFRecord.
     """
 
-    def __init__(self, options: MakeExamplesOptions, plan_sink=None):
+    def __init__(self, options: MakeExamplesOptions, plan_sink=None,
+                 gvcf_sink=None):
         task = options.task_id
         self._writers: Dict[str, TFRecordWriter] = {}
         self._plan_sink = plan_sink
+        self._gvcf_sink = gvcf_sink
         if options.examples_filename:
             self.examples_path = maybe_sharded_output_path(
                 options.examples_filename, task
@@ -913,6 +1028,10 @@ class OutputsWriter:
         if options.candidates_filename:
             self._writers["candidates"] = TFRecordWriter(
                 maybe_sharded_output_path(options.candidates_filename, task)
+            )
+        if options.gvcf_filename:
+            self._writers["gvcfs"] = TFRecordWriter(
+                maybe_sharded_output_path(options.gvcf_filename, task)
             )
         self.counts = {name: 0 for name in
                        ("examples", "candidates", "gvcfs",
@@ -932,6 +1051,17 @@ class OutputsWriter:
             for c in candidates:
                 writer.write(c.variant.encode())
                 self.counts["candidates"] += 1
+
+    def write_gvcfs(self, *gvcfs: Variant):
+        writer = self._writers.get("gvcfs")
+        if writer:
+            for v in gvcfs:
+                writer.write(v.encode())
+                self.counts["gvcfs"] += 1
+        elif self._gvcf_sink is not None:
+            for v in gvcfs:
+                self._gvcf_sink(v)
+                self.counts["gvcfs"] += 1
 
     def close(self):
         for writer in self._writers.values():
@@ -990,9 +1120,10 @@ def make_examples_runner(
 
     `plan_sink(PlannedExample)` receives the device-encode payloads: the
     host stops after row planning, and pileup painting then runs on the
-    card before the CNN (calling.plan_predictor). The other sinks of the
-    JAX package's runner belong to code that is not ported (the host
-    painter, gVCF, the small model) and raise."""
+    card before the CNN (calling.plan_predictor). `gvcf_sink(Variant)`
+    replaces the gVCF TFRecord in fused-stream runs. The other sinks of
+    the JAX package's runner belong to code that is not ported (the host
+    painter, the small model) and raise."""
     if example_sink is not None and plan_sink is not None:
         raise ValueError("pass example_sink or plan_sink, not both")
     if example_sink is not None or (
@@ -1002,9 +1133,6 @@ def make_examples_runner(
             "without a plan_sink) need the host painter, which is not "
             f"ported yet; {_QUEUE} (the host painter build_pileup/"
             "encode_read_row and the make_examples CLI)")
-    if gvcf_sink is not None:
-        raise NotImplementedError(
-            f"gvcf_sink is not ported yet; {_QUEUE} (gVCF)")
     if small_model_cvo_sink is not None:
         raise NotImplementedError(
             "small_model_cvo_sink is not ported yet; ROADMAP.md Queue 1 "
@@ -1021,6 +1149,8 @@ def make_examples_runner(
                 "the host-encode stream instead"
             )
         processor.plan_mode = True
+    if gvcf_sink is not None and not options.gvcf_filename:
+        processor.force_gvcfs = True
     if (options.sample_name == DEFAULT_SAMPLE_NAME
             and processor.bam_reader is not None):
         # No explicit --sample_name: derive it from the BAM's @RG SM
@@ -1053,6 +1183,24 @@ def make_examples_runner(
         options.task_id if options.num_shards else None,
         options.num_shards if options.num_shards else None,
     )
+    if (options.mode == "calling"
+            and options.proposed_variants_filename):
+        # Skip regions without proposed variants
+        # (make_examples_core.py:3444-3476): with a
+        # vcf_candidate_importer every candidate comes from the VCF,
+        # so variant-free regions produce nothing.
+        n_before = len(regions)
+        regions = filter_regions_by_vcf(
+            regions,
+            fetch_vcf_positions(
+                [options.proposed_variants_filename], contigs,
+                calling_regions,
+            ),
+        )
+        logging.info(
+            "proposed-variants filter: %d -> %d regions",
+            n_before, len(regions),
+        )
     if options.sample_mean_coverage_on_calling_regions and \
             processor.bam_reader is not None and regions:
         # Estimate mean coverage by sampling up to 16 regions
@@ -1069,7 +1217,8 @@ def make_examples_runner(
     runtime_rows = []
     sitelist: List[str] = []
     n_candidates_logged = 0
-    with OutputsWriter(options, plan_sink=plan_sink) as writer:
+    with OutputsWriter(options, plan_sink=plan_sink,
+                       gvcf_sink=gvcf_sink) as writer:
         for region in regions:
             outputs = processor.process(region)
             if options.output_sitelist:
@@ -1091,6 +1240,7 @@ def make_examples_runner(
                     )
             writer.write_plans(*outputs.plans)
             writer.write_candidates(*outputs.candidates)
+            writer.write_gvcfs(*outputs.gvcfs)
             if runtime_by_region_path:
                 runtime_rows.append((outputs.region, outputs.runtimes))
         counts = dict(writer.counts)

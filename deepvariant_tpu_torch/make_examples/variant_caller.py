@@ -1,12 +1,11 @@
-"""Very-sensitive candidate variant caller.
+"""Very-sensitive candidate variant caller + gVCF reference confidence.
 
 The port's copy of `deepvariant_tpu.make_examples.variant_caller`: the
 reference's candidate proposal logic (variant_calling_multisample.cc:
 IsGoodAltAllele :235, SelectAltAlleles :586, CalcRefBases :119,
-BuildAlleleMap :685, AddReadDepths :727, CallVariant :972) on top of the
-vectorized AlleleCounter. The gVCF reference-confidence model
-(`ReferenceConfidence`, `make_gvcfs`) is not ported yet and raises
-(ROADMAP.md Queue 1 item 3, gVCF).
+BuildAlleleMap :685, AddReadDepths :727, CallVariant :972) and the Python
+gVCF math (variant_caller.py:121-420) on top of the vectorized
+AlleleCounter.
 
 Candidate rules (single sample; multi-sample hooks kept):
 - an alt allele is good iff count >= min_count(type) and
@@ -14,6 +13,10 @@ Candidate rules (single sample; multi-sample hooks kept):
 - ref bases of the Variant = region ref base extended by the longest deletion.
 - alt strings rebuilt against those ref bases (MakeAltAllele semantics).
 - variant gets calls=[{sample, GT=[-1,-1], DP, AD, VAF}] and alts sorted.
+
+gVCF rules: p_error model with GQ quantization into blocks
+(variant_caller.py:220-254 & make_gvcfs :256-420); GQ cache for
+coverage <= 100; haploid contigs handled; max_gq 50.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from deepvariant_tpu_torch.core import genomics_math
 from deepvariant_tpu_torch.core.types import Range, Variant, VariantCall
 from deepvariant_tpu_torch.make_examples.allele_counter import (
     Allele,
@@ -135,18 +139,95 @@ def rescale_read_counts_if_necessary(
     return n_ref, n_total
 
 
-_GVCF_NOT_PORTED = (
-    "gVCF reference confidence (ReferenceConfidence, make_gvcfs) is not "
-    "ported; ROADMAP.md Queue 1 item 3 (gVCF)"
-)
-
-
 class ReferenceConfidence:
-    """gVCF reference-confidence model: not ported, raises."""
+    """gVCF reference-confidence model with GQ cache (variant_caller.py:124)."""
 
     def __init__(self, options: VariantCallerOptions,
                  max_cache_coverage: int = 100):
-        raise NotImplementedError(_GVCF_NOT_PORTED)
+        self.options = options
+        self.max_cache_coverage = max_cache_coverage
+        self._cache: Dict[bool, list] = {}
+        for is_haploid in (False, True):
+            self._cache[is_haploid] = [
+                self._calc_row(n_total, is_haploid)
+                for n_total in range(max_cache_coverage + 1)
+            ]
+
+    def _calc_row(self, n_total: int, is_haploid: bool) -> list:
+        """All (gq, log10_probs) for n_ref in 0..n_total, vectorized.
+
+        Bit-identical to mapping _calc over n_ref (same float64 ops in
+        the same order; verified exhaustively in
+        tests/test_variant_caller.py)."""
+        if n_total == 0:
+            return [self._calc(0, 0, is_haploid)]
+        opts = self.options
+        log10 = math.log(10)
+        logp = math.log(opts.p_error) / log10
+        log1p = math.log1p(-opts.p_error) / log10
+        n_ref = np.arange(n_total + 1, dtype=np.float64)
+        n_alts = n_total - n_ref
+        p_ref = n_ref * log1p + n_alts * logp
+        if is_haploid:
+            p_het = np.full(n_total + 1, -IMPOSSIBLE_PROBABILITY_LOG10,
+                            dtype=np.float64)
+        else:
+            p_het = np.full(
+                n_total + 1, -n_total * math.log(opts.ploidy) / log10,
+                dtype=np.float64,
+            )
+        p_hom_alt = n_ref * logp + n_alts * log1p
+        probs = np.stack([p_ref, p_het, p_hom_alt], axis=1)
+        m = np.max(probs, axis=1, keepdims=True)
+        lse = m + np.log10(np.sum(10.0 ** (probs - m), axis=1,
+                                  keepdims=True))
+        norm = np.minimum(probs - lse, 0.0)
+        ptrue = 10.0 ** norm[:, 0]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            gq_raw = -10.0 * np.log10(1.0 - ptrue)
+        gq_raw = np.where(
+            (ptrue >= 1.0) | ~np.isfinite(gq_raw), opts.max_gq, gq_raw
+        )
+        gqs = np.minimum(np.floor(gq_raw), opts.max_gq)
+        return [(int(gqs[i]), norm[i]) for i in range(n_total + 1)]
+
+    def __call__(self, n_ref: int, n_total: int,
+                 is_haploid: bool = False) -> Tuple[int, np.ndarray]:
+        n_ref, n_total = rescale_read_counts_if_necessary(
+            n_ref, n_total, self.max_cache_coverage
+        )
+        return self._cache[is_haploid][n_total][n_ref]
+
+    def _calc(self, n_ref: int, n_total: int,
+              is_haploid: bool) -> Tuple[int, np.ndarray]:
+        opts = self.options
+        if n_total == 0:
+            if is_haploid:
+                log10_probs = genomics_math.normalize_log10_probs(
+                    [-1.0, -IMPOSSIBLE_PROBABILITY_LOG10, -1.0]
+                )
+            else:
+                log10_probs = genomics_math.normalize_log10_probs(
+                    [-1.0, -1.0, -1.0]
+                )
+        else:
+            n_alts = n_total - n_ref
+            log10 = math.log(10)
+            logp = math.log(opts.p_error) / log10
+            log1p = math.log1p(-opts.p_error) / log10
+            log10_p_ref = n_ref * log1p + n_alts * logp
+            log10_p_het = -n_total * math.log(opts.ploidy) / log10
+            if is_haploid:
+                log10_p_het = -IMPOSSIBLE_PROBABILITY_LOG10
+            log10_p_hom_alt = n_ref * logp + n_alts * log1p
+            log10_probs = genomics_math.normalize_log10_probs(
+                [log10_p_ref, log10_p_het, log10_p_hom_alt]
+            )
+        gq = genomics_math.log10_ptrue_to_phred(
+            log10_probs[0], opts.max_gq
+        )
+        gq = int(min(np.floor(gq), opts.max_gq))
+        return gq, log10_probs
 
 
 @dataclasses.dataclass
@@ -283,6 +364,7 @@ class VerySensitiveCaller:
 
     def __init__(self, options: Optional[VariantCallerOptions] = None):
         self.options = options or VariantCallerOptions()
+        self.ref_confidence = ReferenceConfidence(self.options)
         self._rng = np.random.Generator(
             np.random.Philox(self.options.random_seed)
         )
@@ -698,4 +780,107 @@ class VerySensitiveCaller:
         left_padding: int = 0,
         right_padding: int = 0,
     ) -> Iterator[Variant]:
-        raise NotImplementedError(_GVCF_NOT_PORTED)
+        """Reference blocks for every interval position
+        (variant_caller.py:256-420 make_gvcfs).
+
+        left_padding/right_padding crop the phasing-padded flanks out
+        of the gvcf (summary_counts(left_padding, right_padding),
+        variant_caller.py:461-464), so blocks match an unpadded run."""
+        interval = counter.interval
+        ref_count, total_count = counter.summary_counts()
+        is_haploid_contig = (
+            interval.reference_name in self.options.haploid_contigs
+        )
+        if is_haploid_contig and self.options.par_regions_bed:
+            # PAR regions on haploid contigs stay diploid
+            # (--par_regions_bed; postprocess_variants.py:1070 analog).
+            par = self._par_regions()
+            if par is not None and any(
+                par.overlaps(interval.reference_name, pos)
+                for pos in (interval.start, interval.end - 1)
+            ):
+                is_haploid_contig = False
+        opts = self.options
+        width = len(interval)
+
+        # Compute per-position (quantized_gq, raw_gq, likelihood idx, valid).
+        records = []
+        for i in range(left_padding, width - right_padding):
+            ref_byte = counter.ref[i]
+            if ref_byte not in CANONICAL_DNA_BASES:
+                if ref_byte in EXTENDED_IUPAC_CODES:
+                    records.append(
+                        (None, None, None, True, int(total_count[i]), i)
+                    )
+                    continue
+                raise ValueError(
+                    f"invalid reference base {chr(ref_byte)} at "
+                    f"{interval.reference_name}:{interval.start + i}"
+                )
+            raw_gq, likelihoods = self.ref_confidence(
+                int(ref_count[i]), int(total_count[i]), is_haploid_contig
+            )
+            quantized = _quantize_gq(raw_gq, opts.gq_resolution)
+            has_valid_gl = bool(
+                np.max(likelihoods) == likelihoods[0]
+            )
+            records.append(
+                (quantized, raw_gq, likelihoods, has_valid_gl,
+                 int(total_count[i]), i)
+            )
+
+        # Group contiguous records by (quantized_gq, has_valid_gl).
+        import itertools
+
+        for (qgq, valid), group in itertools.groupby(
+            records, key=lambda r: (r[0], r[3])
+        ):
+            if qgq is None:
+                continue
+            group = list(group)
+            if valid:
+                min_idx, min_gq = min(
+                    enumerate(g[1] for g in group), key=lambda p: p[1]
+                )
+                min_dp = min(g[4] for g in group)
+                first, last = group[0], group[-1]
+                call = VariantCall(
+                    call_set_name=opts.sample_name,
+                    genotype=[0, 0],
+                    genotype_likelihood=list(group[min_idx][2]),
+                    info={"GQ": [min_gq], "MIN_DP": [min_dp]},
+                )
+                if include_med_dp:
+                    import statistics
+
+                    call.info["MED_DP"] = [
+                        int(statistics.median(g[4] for g in group))
+                    ]
+                yield Variant(
+                    reference_name=interval.reference_name,
+                    reference_bases=chr(counter.ref[first[5]]),
+                    alternate_bases=[GVCF_ALT_ALLELE],
+                    start=interval.start + first[5],
+                    end=interval.start + last[5] + 1,
+                    info={"END": [interval.start + last[5] + 1]},
+                    calls=[call],
+                )
+            else:
+                for g in group:
+                    call = VariantCall(
+                        call_set_name=opts.sample_name,
+                        genotype=[-1, -1],
+                        genotype_likelihood=list(g[2]),
+                        info={"GQ": [g[1]], "MIN_DP": [g[4]]},
+                    )
+                    if include_med_dp:
+                        call.info["MED_DP"] = [g[4]]
+                    yield Variant(
+                        reference_name=interval.reference_name,
+                        reference_bases=chr(counter.ref[g[5]]),
+                        alternate_bases=[GVCF_ALT_ALLELE],
+                        start=interval.start + g[5],
+                        end=interval.start + g[5] + 1,
+                        info={"END": [interval.start + g[5] + 1]},
+                        calls=[call],
+                    )

@@ -9,19 +9,21 @@ multiprocessing queue into the parent process, which paints every pileup on the
 card (one launch of the CUDA paint kernel's plan form per batch) and
 runs the CNN on the painted batch without the image leaving device
 memory (calling.plan_predictor.PlanPredictor). CallVariantsOutputs
-accumulate in memory; no file lies between the stages.
+accumulate in memory; no file lies between the stages. gVCF records
+stream through the same queue (replacing their TFRecord), so
+`output_gvcf` is the drop-in equivalent of the staged gVCF.
 
 The CVOs equal the staged path's: workers iterate exactly the regions
 their task_id owns (the round-robin rule of make_examples_core.py:881),
 the painter is bit-exact against the JAX package's encoders, and
 per-example probabilities do not depend on batch boundaries.
 
-`run_streaming_pipeline` goes on to the VCF: `postprocess_variants`
-(stage 3, on the host) on the CVOs in memory.
+`run_streaming_pipeline` goes on to the VCF and the gVCF:
+`postprocess_variants` (stage 3, on the host) on the CVOs and the gVCF
+records in memory.
 
 Not ported, and raising: host-encode mode (workers painting tf.Examples
-need the host painter), gVCF records and small-model CVOs through the
-queues.
+need the host painter) and small-model CVOs through the queues.
 """
 
 from __future__ import annotations
@@ -35,14 +37,17 @@ import torch
 
 _SENTINEL_KIND = "done"
 _PLAN_KIND = "plans"
+_GVCF_KIND = "gvcfs"
 _FLUSH_EVERY = 64
+_GVCF_FLUSH_EVERY = 512
 
 
 def _stream_worker(options, task_id: int, num_shards: int,
                    out_queue: "mp.Queue", device_encode: bool = True,
                    want_gvcf: bool = False) -> None:
-    """One make_examples shard, plan payloads to the queue (spawn
-    target). Runs on the host only.
+    """One make_examples shard, plan payloads (and, with `want_gvcf`,
+    encoded gVCF records) to the queue (spawn target). Runs on the host
+    only.
 
     `options` is a pickled MakeExamplesOptions (or a kwargs dict):
     passing the object keeps the streamed path's configuration
@@ -58,10 +63,10 @@ def _stream_worker(options, task_id: int, num_shards: int,
     # and N workers with a full torch pool each would fight for cores.
     torch.set_num_threads(1)
     try:
-        if not device_encode or want_gvcf:
+        if not device_encode:
             raise NotImplementedError(
                 "stream workers only make device-encode plans; host-"
-                "painted examples and gVCF records are not ported")
+                "painted examples are not ported")
         if isinstance(options, dict):
             options = MakeExamplesOptions(**options)
         options.task_id = task_id
@@ -70,24 +75,36 @@ def _stream_worker(options, task_id: int, num_shards: int,
         options.gvcf_filename = ""
         options.small_model_cvo_filename = ""
 
-        buf: list = []
+        bufs: Dict[str, list] = {_PLAN_KIND: [], _GVCF_KIND: []}
 
-        def flush():
-            if buf:
-                out_queue.put((_PLAN_KIND, buf[:]))
-                buf.clear()
+        def flush(kind: str):
+            if bufs[kind]:
+                out_queue.put((kind, bufs[kind][:]))
+                bufs[kind].clear()
+
+        def make_sink(kind: str, every: int = _FLUSH_EVERY):
+            def sink(item):
+                bufs[kind].append(item)
+                if len(bufs[kind]) >= every:
+                    flush(kind)
+            return sink
 
         diff = options.pileup_options.alt_aligned_pileup == \
             "diff_channels"
+        sink_plan = make_sink(_PLAN_KIND)
 
         def plan_sink(planned):
             planned.plan = compact_plan(planned.plan, diff)
-            buf.append(planned)
-            if len(buf) >= _FLUSH_EVERY:
-                flush()
+            sink_plan(planned)
 
-        counts = make_examples_runner(options, plan_sink=plan_sink)
-        flush()
+        sinks = {"plan_sink": plan_sink}
+        if want_gvcf:
+            # Variants cross the spawn boundary as their encoded bytes.
+            gvcf_sink = make_sink(_GVCF_KIND, _GVCF_FLUSH_EVERY)
+            sinks["gvcf_sink"] = lambda v: gvcf_sink(v.encode())
+        counts = make_examples_runner(options, **sinks)
+        for kind in bufs:
+            flush(kind)
         if torch.cuda.is_initialized():
             raise RuntimeError("a stream worker initialised CUDA; workers "
                                "run on the host only")
@@ -127,7 +144,7 @@ def stream_examples_to_cvos(
     device: Union[str, torch.device] = "cuda",
     dtype: torch.dtype = torch.bfloat16,
 ) -> tuple:
-    """Run the fused stage-1+2: returns (cvos, StreamStats, None).
+    """Run the fused stage-1+2: returns (cvos, StreamStats, gvcfs).
 
     Workers produce plans concurrently with device inference; the
     measured examples/sec INCLUDES the host feed (BAM decoding,
@@ -141,13 +158,14 @@ def stream_examples_to_cvos(
     `batch_size`, `device` and `dtype`. `device` defaults to the card,
     and a missing card raises before any worker starts.
 
-    The third element of the result is the JAX package's gvcf_records,
-    always None here: `want_gvcf` raises, as does host-encode mode
-    (`device_encode=False`, `variables`, `predictor_factory`).
+    The third element of the result is the gVCF records (Variants, in
+    the order the workers sent them) with `want_gvcf`, else None.
+    Host-encode mode (`device_encode=False`, `variables`,
+    `predictor_factory`) raises.
     """
     from deepvariant_tpu_torch.calling.call_variants import round_gls
     from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
-    from deepvariant_tpu_torch.core.types import CallVariantsOutput
+    from deepvariant_tpu_torch.core.types import CallVariantsOutput, Variant
     from deepvariant_tpu_torch.device import resolve_device
 
     if not device_encode or predictor_factory is not None \
@@ -157,10 +175,6 @@ def stream_examples_to_cvos(
             "predictor_factory) needs the host painter, which is not "
             "ported yet; ROADMAP.md Queue 1 item 3 (the host painter "
             "build_pileup/encode_read_row and the make_examples CLI)")
-    if want_gvcf:
-        raise NotImplementedError(
-            "want_gvcf is not ported yet; ROADMAP.md Queue 1 item 3 "
-            "(gVCF)")
     if plan_predictor_factory is None and model is None:
         raise ValueError(
             "device_encode=True needs plan_predictor_factory or model"
@@ -188,6 +202,7 @@ def stream_examples_to_cvos(
     stage1_counts: Dict[int, Dict[str, int]] = {}
     failures: List[str] = []
     first_result_t: List[float] = []
+    gvcf_records: Optional[List] = [] if want_gvcf else None
 
     def payloads() -> Iterator:
         remaining = num_workers
@@ -202,6 +217,9 @@ def stream_examples_to_cvos(
                     return
                 stage1_counts[task_id] = counts
                 remaining -= 1
+                continue
+            if msg[0] == _GVCF_KIND:
+                gvcf_records.extend(Variant.decode(buf) for buf in msg[1])
                 continue
             yield from msg[1]
 
@@ -255,6 +273,7 @@ def stream_examples_to_cvos(
         examples_per_sec=len(cvos) / dt,
         stage1_counts=stage1_counts,
         device_encode=device_encode,
+        num_gvcf_records=len(gvcf_records) if want_gvcf else 0,
         steady_state_examples_per_sec=steady,
     )
     if stats.num_examples != stats.num_cvos:
@@ -262,7 +281,7 @@ def stream_examples_to_cvos(
             f"stream lost examples: workers produced "
             f"{stats.num_examples}, classified {stats.num_cvos}"
         )
-    return cvos, stats, None
+    return cvos, stats, gvcf_records
 
 
 def run_streaming_pipeline(
@@ -282,21 +301,24 @@ def run_streaming_pipeline(
     device: Union[str, torch.device] = "cuda",
     dtype: torch.dtype = torch.bfloat16,
 ) -> Dict:
-    """Full fused run: reads file -> streamed plans -> card -> VCF.
+    """Full fused run: reads file -> streamed plans -> card -> VCF
+    (+gVCF).
 
     `stream_examples_to_cvos` (device-encode mode, `device` and `dtype`
     as there: the card by default, and a missing card raises), then
-    `postprocess_variants` on the CVOs in memory, on the host. An output
-    ending in `.gz` is BGZF; its tabix index is the caller's
+    `postprocess_variants` on the CVOs in memory, on the host; with
+    `output_gvcf` it merges the streamed gVCF records in, truncated
+    blocks taking their first base from the FASTA. An output ending in
+    `.gz` is BGZF; its tabix index is the caller's
     (`io.tabix.build_index`), as in the JAX package. Host-encode mode
-    (`device_encode=False`, `variables`, `predictor_factory`) and
-    `output_gvcf` raise NotImplementedError as the stream does."""
+    (`device_encode=False`, `variables`, `predictor_factory`) raises
+    NotImplementedError as the stream does."""
     from deepvariant_tpu_torch.io.fasta import FastaReader
     from deepvariant_tpu_torch.postprocess.pipeline import (
         postprocess_variants,
     )
 
-    cvos, stats, _ = stream_examples_to_cvos(
+    cvos, stats, gvcf_records = stream_examples_to_cvos(
         options, num_workers, variables,
         model=model, batch_size=batch_size,
         predictor_factory=predictor_factory,
@@ -306,9 +328,24 @@ def run_streaming_pipeline(
         device=device, dtype=dtype,
     )
     ref_reader = FastaReader(ref_path)
+    pp_kwargs = dict(postprocess_kwargs or {})
+    if output_gvcf:
+        from deepvariant_tpu_torch.core.types import Range
+
+        def ref_lookup(contig: str, pos: int) -> str:
+            # One base, as the postprocess CLI looks it up. (The JAX
+            # package passes `ref_reader.bases` here, which takes a Range
+            # and raises at the first block a variant truncates.)
+            return ref_reader.query(Range(contig, pos, pos + 1))
+
+        pp_kwargs.update(
+            nonvariant_site_path=gvcf_records,
+            output_gvcf=output_gvcf,
+            ref_lookup=ref_lookup,
+        )
     pp = postprocess_variants(
         cvos, output_vcf, ref_reader.contigs, sample_name=sample_name,
-        **dict(postprocess_kwargs or {}),
+        **pp_kwargs,
     )
     return {
         "stream_examples": stats.num_examples,

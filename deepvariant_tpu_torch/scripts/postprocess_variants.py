@@ -1,15 +1,16 @@
-"""postprocess_variants CLI (stage 3): CVO TFRecord -> VCF.
+"""postprocess_variants CLI (stage 3): CVO TFRecord -> VCF / gVCF.
 
 The port's copy of `deepvariant_tpu.scripts.postprocess_variants`, with
 the same flags (the reference postprocess_variants.py main, :2232).
-Stage 3 runs on the host: this CLI needs no card. Output ending in `.gz`
-is BGZF and gets a tabix index. Flags whose code is not ported raise
-NotImplementedError naming their ROADMAP.md item: `--gvcf_outfile` and
-`--nonvariant_site_tfrecord_path` (Queue 1 item 3, gVCF) and
-`--vcf_stats_report` (Queue 1 item 6, tools/).
+Stage 3 runs on the host: this CLI needs no card. Each output ending in
+`.gz` (the VCF and the gVCF) is BGZF and gets a tabix index.
+`--vcf_stats_report`, whose code is not ported, raises
+NotImplementedError naming its ROADMAP.md item (Queue 1 item 6, tools/).
 
     python -m deepvariant_tpu_torch.scripts.postprocess_variants \
-        --ref ref.fa --infile cvo.tfrecord.gz --outfile out.vcf.gz
+        --ref ref.fa --infile cvo.tfrecord.gz --outfile out.vcf.gz \
+        [--nonvariant_site_tfrecord_path gvcf.tfrecord.gz \
+         --gvcf_outfile out.g.vcf.gz]
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import argparse
 import sys
 
 from deepvariant_tpu_torch.core.ranges import RangeSet, read_bed
+from deepvariant_tpu_torch.core.types import Range
 from deepvariant_tpu_torch.io.fasta import FastaReader
 from deepvariant_tpu_torch.io.tabix import build_index
 from deepvariant_tpu_torch.postprocess.pipeline import (
@@ -83,10 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.gvcf_outfile or args.nonvariant_site_tfrecord_path:
-        raise NotImplementedError(
-            "--gvcf_outfile and --nonvariant_site_tfrecord_path (the gVCF "
-            "merge) are not ported yet; ROADMAP.md Queue 1 item 3 (gVCF)")
     if args.vcf_stats_report:
         raise NotImplementedError(
             "--vcf_stats_report (tools/vcf_stats) is not ported yet; "
@@ -102,6 +100,9 @@ def main(argv=None) -> int:
     if args.par_regions_bed:
         par_regions = RangeSet(read_bed(args.par_regions_bed))
 
+    def ref_lookup(contig: str, pos: int) -> str:
+        return ref.query(Range(contig, pos, pos + 1))
+
     sample_name = args.sample_name or _sample_name_from_cvos(args.infile) \
         or "default"
     regions = None
@@ -111,7 +112,14 @@ def main(argv=None) -> int:
     if args.small_model_cvo_records:
         infiles.append(args.small_model_cvo_records)
     if args.cpus > 0:
-        # Partition-parallel path (postprocess_variants.py:1887).
+        # Partition-parallel path (postprocess_variants.py:1887): only
+        # the plain-VCF flow partitions; gVCF merge stays single
+        # process like the reference's merge step.
+        if args.nonvariant_site_tfrecord_path:
+            raise SystemExit(
+                "--cpus parallelism applies to the VCF-only flow; "
+                "run gVCF merging without --cpus"
+            )
         stats = postprocess_variants_parallel(
             infiles,
             args.outfile,
@@ -142,6 +150,9 @@ def main(argv=None) -> int:
         multiallelic_mode=args.multiallelic_mode,
         haploid_contigs=haploid,
         par_regions=par_regions,
+        nonvariant_site_path=args.nonvariant_site_tfrecord_path or None,
+        output_gvcf=args.gvcf_outfile or None,
+        ref_lookup=ref_lookup,
         only_keep_pass=args.only_keep_pass,
         group_variants=args.group_variants,
         phased_reads_switches_path=(
@@ -153,11 +164,16 @@ def main(argv=None) -> int:
         regions=regions,
         debug_output_all_candidates=args.debug_output_all_candidates,
     )
-    # Tabix-index a bgzipped output (postprocess_variants.py:1583
+    # Tabix-index bgzipped outputs (postprocess_variants.py:1583
     # build_index).
-    if args.outfile.endswith(".gz"):
-        build_index(args.outfile, use_csi=args.use_csi)
-    print(f"postprocess_variants done: {stats['vcf_records']} VCF records")
+    for out in (args.outfile, args.gvcf_outfile):
+        if out and out.endswith(".gz"):
+            build_index(out, use_csi=args.use_csi)
+    print(
+        f"postprocess_variants done: {stats['vcf_records']} VCF records"
+        + (f", {stats['gvcf_records']} gVCF records"
+           if args.gvcf_outfile else "")
+    )
     return 0
 
 

@@ -18,6 +18,12 @@ readers, the allele counter and the planners:
 `synthetic_longread_sample` is the long-read form: single-end reads of a
 few kb with indel and substitution errors in their alignments, for the
 PacBio and ONT presets.
+
+`write_vcf_inputs` writes the VCF inputs of stage 1 from a sample's
+planted variants: a population VCF with an AF per alt (for the
+allele_frequency channel), a VCF of proposed variants (for the
+vcf_candidate_importer) and a VCF of variants to exclude, each bgzipped
+and tabix-indexed by the port's own writers, each only when asked for.
 """
 
 from __future__ import annotations
@@ -503,3 +509,138 @@ def write_inputs(sample: dict, directory: str, types_module, bam_module,
         w.write_batch(read_batch(sample, bam_module))
     bam_writer_module.build_bam_index(bam_path)
     return dict(ref=ref_path, reads=bam_path)
+
+
+def _vcf_alleles(ref: np.ndarray, v: dict) -> Tuple[str, List[str]]:
+    """A planted variant as VCF (REF, [ALT, ...]): the reference bases
+    span the longest deletion, and each alt is written against them."""
+    pos = v["pos"]
+    n = max([a[1] for a in v["alleles"] if a[0] == "del"], default=0)
+    ref_bases = ref[pos:pos + 1 + n].tobytes().decode()
+    alts = []
+    for kind, x in v["alleles"]:
+        if kind == "snp":
+            alts.append(x + ref_bases[1:])
+        elif kind == "ins":
+            alts.append(ref_bases[0] + x + ref_bases[1:])
+        else:
+            alts.append(ref_bases[0] + ref_bases[1 + x:])
+    return ref_bases, alts
+
+
+def _other_alt(ref_bases: str, taken: Sequence[str]) -> str:
+    """An alt at the site of `ref_bases` that is none of `taken`: a
+    substitution of the first base if one is free, else an insertion."""
+    options = [b + ref_bases[1:] for b in "ACGT"] + [
+        ref_bases[0] + ins + ref_bases[1:] for ins in ("T", "GA")]
+    return next(a for a in options if a != ref_bases and a not in taken)
+
+
+def _population_records(rng, ref: np.ndarray, planted: List[dict]):
+    """(start, REF, ALTs, AFs) of the cohort: every planted variant in one
+    of five forms, so that every branch of the haplotype matching fires:
+    the same alleles; the same haplotypes written one base longer; the
+    true alts beside an extra alt; another alt at the same site (a
+    REF-only match); or no record at all (the alts unmatched)."""
+    out = []
+    for v in planted:
+        ref_bases, alts = _vcf_alleles(ref, v)
+        form = int(rng.randint(5))
+        afs = [float(np.round(rng.uniform(0.001, 0.3), 4)) for _ in alts]
+        if form == 0:
+            out.append((v["pos"], ref_bases, alts, afs))
+        elif form == 1:
+            tail = chr(ref[v["pos"] + len(ref_bases)])
+            out.append((v["pos"], ref_bases + tail,
+                        [a + tail for a in alts], afs))
+        elif form == 2:
+            out.append((v["pos"], ref_bases,
+                        alts + [_other_alt(ref_bases, alts)],
+                        afs + [0.0123]))
+        elif form == 3:
+            out.append((v["pos"], ref_bases,
+                        [_other_alt(ref_bases, alts)], afs[:1]))
+    return out
+
+
+def write_vcf_inputs(sample: dict, directory: str, seed: int = 0,
+                     population: bool = False,
+                     population_by_contig: bool = False,
+                     proposed: bool = False,
+                     exclude: bool = False) -> Dict[str, object]:
+    """Write the asked-for VCF inputs of stage 1 from the sample's planted
+    variants, bgzipped (`.vcf.gz`) with a `.tbi`, and return their paths.
+
+    - `population`: `population.vcf.gz`, the cohort of
+      `_population_records` with an AF for every alt;
+      `population_by_contig` writes the same records as one file per
+      contig (`population.<contig>.vcf.gz`, a list under that key).
+    - `proposed`: `proposed.vcf.gz`, the planted variants whose position
+      lies in an even kilobase (so regions of an odd one hold none and
+      the importer skips them), plus one reference site per contig that
+      no read supports as a variant.
+    - `exclude`: `exclude.vcf.gz`, planted variants with an AF of
+      0.001, 0.05 or 0.5, or another alt at their site, or no record.
+
+    The records come from `seed`, not from the sample's own draws, so
+    every sample keeps its bytes."""
+    from deepvariant_tpu_torch.core.types import ContigInfo, Variant
+    from deepvariant_tpu_torch.io.tabix import build_index
+    from deepvariant_tpu_torch.io.vcf import VcfHeader, VcfWriter
+
+    os.makedirs(directory, exist_ok=True)
+    contigs = [ContigInfo(n, length, i)
+               for i, (n, length) in enumerate(sample["contigs"])]
+    af_line = ("INFO", '<ID=AF,Number=A,Type=Float,'
+               'Description="Allele frequency">')
+
+    def write(name: str, records, with_af: bool) -> str:
+        path = os.path.join(directory, name)
+        header = VcfHeader(contigs, [], extras=[af_line] if with_af else [])
+        with VcfWriter(path, header) as w:
+            for contig, start, ref_bases, alts, afs in records:
+                w.write(Variant(
+                    reference_name=contig, start=start,
+                    end=start + len(ref_bases), reference_bases=ref_bases,
+                    alternate_bases=list(alts),
+                    info={"AF": list(afs)} if with_af else {}))
+        build_index(path)
+        return path
+
+    rng = np.random.RandomState(seed)
+    cohort, proposals, excludes = [], [], []
+    for name, _ in sample["contigs"]:
+        ref = sample["reference"][name]
+        planted = sample["variants"][name]
+        cohort.extend((name,) + r
+                      for r in _population_records(rng, ref, planted))
+        site = [(v["pos"],) + _vcf_alleles(ref, v) for v in planted]
+        free = next(p for p in range(150, len(ref), 7)
+                    if chr(ref[p]) in "ACGT"
+                    and all(abs(p - s[0]) > 20 for s in site)
+                    and (p // 1000) % 2 == 0)
+        chosen = [s for s in site if (s[0] // 1000) % 2 == 0]
+        chosen.append((free, chr(ref[free]),
+                       [_other_alt(chr(ref[free]), ())]))
+        proposals.extend((name, p, r, a, []) for p, r, a in sorted(chosen))
+        for pos, ref_bases, alts in site:
+            form = int(rng.randint(5))
+            if form < 3:
+                excludes.append((name, pos, ref_bases, alts,
+                                 [(0.001, 0.05, 0.5)[form]] * len(alts)))
+            elif form == 3:
+                excludes.append((name, pos, ref_bases,
+                                 [_other_alt(ref_bases, alts)], [0.9]))
+    out: Dict[str, object] = {}
+    if population:
+        out["population"] = write("population.vcf.gz", cohort, True)
+    if population_by_contig:
+        out["population_by_contig"] = [
+            write(f"population.{name}.vcf.gz",
+                  [r for r in cohort if r[0] == name], True)
+            for name, _ in sample["contigs"]]
+    if proposed:
+        out["proposed"] = write("proposed.vcf.gz", proposals, False)
+    if exclude:
+        out["exclude"] = write("exclude.vcf.gz", excludes, True)
+    return out

@@ -213,10 +213,6 @@ UNPORTED = {
     "small-model-cvos": dict(small_model_cvo_filename="c.tfrecord"),
     "small-model-examples": dict(small_model_examples_filename="e.tfrecord"),
     "small-model-context": dict(small_model_vaf_context_window_size=51),
-    "proposed-variants": dict(proposed_variants_filename="p.vcf.gz"),
-    "vcf-importer": dict(variant_caller="vcf_candidate_importer"),
-    "population-vcfs": dict(population_vcf_filenames=["pop.vcf.gz"]),
-    "exclude-variants": dict(exclude_variants_vcf_filename="x.vcf.gz"),
     "training": dict(mode="training"),
     "truth": dict(truth_variants_filename="t.vcf.gz"),
     "confident-regions": dict(confident_regions_filename="c.bed"),
@@ -224,7 +220,6 @@ UNPORTED = {
     "denovo": dict(denovo_regions=["chr1:1-10"]),
     "candidate-sweep": dict(mode="candidate_sweep"),
     "normalize-reads": dict(normalize_reads=True),
-    "gvcf": dict(gvcf_filename="g.tfrecord"),
 }
 
 
@@ -284,7 +279,6 @@ def test_sinks_without_ported_code_raise(paths, tmp_path):
     cases = [
         (dict(examples_filename=str(tmp_path / "e.tfrecord")), {}),
         ({}, dict(example_sink=sink)),
-        ({}, dict(plan_sink=sink, gvcf_sink=sink)),
         ({}, dict(plan_sink=sink, small_model_cvo_sink=sink)),
     ]
     for overrides, sinks in cases:
@@ -298,10 +292,20 @@ def test_sinks_without_ported_code_raise(paths, tmp_path):
     processor = tcore.RegionProcessor(wgs_options(PORT, paths))
     with pytest.raises(NotImplementedError, match="host painter"):
         processor.process(tt.Range("chr1", 1000, 2000))
-    with pytest.raises(NotImplementedError, match="gVCF"):
-        processor.candidates_in_region(
-            tt.Range("chr1", 1000, 2000),
-            processor.region_reads(tt.Range("chr1", 1000, 2000)), True)
+    # The gVCF is ported: a gVCF sink receives the reference blocks, and
+    # candidates_in_region returns them, as in the JAX package.
+    region = tt.Range("chr1", 1000, 2000)
+    blocks = []
+    counts = tcore.make_examples_runner(
+        wgs_options(PORT, paths, regions=["chr1:1,001-2,000"]),
+        plan_sink=sink, gvcf_sink=blocks.append)
+    assert counts["gvcfs"] == len(blocks) > 10
+    candidates, gvcfs, _ = processor.candidates_in_region(
+        region, processor.region_reads(region), True)
+    # (The runner names the sample from the BAM, this processor does not.)
+    assert [(v.start, v.end, v.calls[0].info) for v in gvcfs] == \
+        [(v.start, v.end, v.calls[0].info) for v in blocks]
+    assert candidates
 
 
 def test_channels_the_painter_lacks_raise_as_in_jax(paths):

@@ -21,11 +21,12 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "core.sharded_files", "core.types",
     "io.bam", "io.bam_writer", "io.bgzf", "io.examples", "io.fasta",
     "io.flax_msgpack", "io.tabix", "io.tfrecord", "io.vcf",
-    "make_examples.allele_counter", "make_examples.alt_aligned",
+    "make_examples.allele_counter", "make_examples.allele_frequency",
+    "make_examples.alt_aligned",
     "make_examples.core", "make_examples.examples_builder",
     "make_examples.pileup", "make_examples.pileup_device",
     "make_examples.presets", "make_examples.shuffle",
-    "make_examples.variant_caller",
+    "make_examples.variant_caller", "make_examples.vcf_candidate_importer",
     "models.checkpoint", "models.inception_v3",
     "ops._build", "ops.pileup_paint",
     "parallel.stream_pipeline",

@@ -183,10 +183,12 @@ def test_run_streaming_pipeline_refuses_as_the_stream_does(tmp_path):
         sp.run_streaming_pipeline(options, str(tmp_path / "a.vcf"),
                                   paths["ref"], model=iv3.InceptionV3(7),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="gVCF"):
+    # output_gvcf is ported (tests/test_torch_gvcf.py); with host
+    # encoding it refuses as the stream does.
+    with pytest.raises(NotImplementedError, match="host painter"):
         sp.run_streaming_pipeline(options, str(tmp_path / "a.vcf"),
                                   paths["ref"], model=iv3.InceptionV3(7),
-                                  device_encode=True, device="cpu",
+                                  device="cpu",
                                   output_gvcf=str(tmp_path / "g.vcf"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA was requested"):

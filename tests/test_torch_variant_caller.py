@@ -171,11 +171,3 @@ def test_options_and_call_round_trip(region_counters):
     assert type(there[0]) is tvc.DeepVariantCall
     assert_calls_equal(there, calls)
     assert_calls_equal(to_package(there, "deepvariant_tpu"), calls)
-
-
-def test_gvcf_model_raises(region_counters):
-    _, counter = region_counters[0]
-    with pytest.raises(NotImplementedError, match="gVCF"):
-        tvc.ReferenceConfidence(tvc.VariantCallerOptions())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvc.VerySensitiveCaller().make_gvcfs(counter)
