@@ -298,6 +298,75 @@ def stage3(paths, long_paths, tmp_path_factory):
     return files
 
 
+def merge_by_contig(monkeypatch, contigs=("chr1", "chr2")):
+    """Run the JAX package's gVCF merge one contig at a time. Its merge
+    puts a variant first whenever the two streams stand on different
+    contigs, so with two contigs it writes the second contig's variants
+    before the first contig's last blocks and leaves the second
+    contig's blocks unsplit under them
+    (`test_jax_merge_interleaves_contigs`); on one contig it is right.
+    The port orders the contigs (`contig_order`), and its gVCF is the
+    JAX package's, merged contig by contig, byte for byte."""
+    plain = jpipe.merge_variants_and_nonvariants
+
+    def by_contig(variants, nonvariants, ref_lookup=None,
+                  only_keep_pass=False):
+        variants, nonvariants = list(variants), list(nonvariants)
+        for name in contigs:
+            yield from plain(
+                [v for v in variants if v.reference_name == name],
+                [v for v in nonvariants if v.reference_name == name],
+                ref_lookup=ref_lookup, only_keep_pass=only_keep_pass)
+
+    monkeypatch.setattr(jpipe, "merge_variants_and_nonvariants", by_contig)
+
+
+def spans(text):
+    """(contig, start, end, is reference block) of gVCF record lines; a
+    record's end is its END where it has one."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("#"):
+            continue
+        f = line.split("\t")
+        start = int(f[1]) - 1
+        end = start + len(f[3])
+        for item in f[7].split(";"):
+            if item.startswith("END="):
+                end = int(item[4:])
+        out.append((f[0], start, end, f[4] == "<*>"))
+    return out
+
+
+def assert_tiles(text, ref, regions=None):
+    """The gVCF's records cover every A, C, G or T base of each contig
+    (of `regions`, (contig, start, end), where given) once, in order,
+    contig after contig; only variant records overlap."""
+    fasta = PortFastaReader(ref)
+    records = spans(text)
+    names = [c.name for c in fasta.contigs]
+    assert [r[0] for r in records] == sorted(
+        (r[0] for r in records), key=names.index)
+    for contig in fasta.contigs:
+        own = [r for r in records if r[0] == contig.name]
+        assert [r[1] for r in own] == sorted(r[1] for r in own)
+        bases = fasta.bases(tt.Range(contig.name, 0, contig.n_bases))
+        covered = np.zeros(contig.n_bases, np.int32)
+        blocks = np.zeros(contig.n_bases, np.int32)
+        for _, start, end, block in own:
+            covered[start:end] += 1
+            blocks[start:end] += block
+        dna = np.isin(bases, np.frombuffer(b"ACGT", np.uint8))
+        if regions is not None:
+            inside = np.zeros(contig.n_bases, bool)
+            for name, start, end in regions:
+                if name == contig.name:
+                    inside[start:end] = True
+            dna &= inside
+        np.testing.assert_array_equal(covered > 0, dna)
+        assert not (blocks[covered > 1] > 0).any()
+
+
 def ref_lookup(package, ref):
     reader = FASTA[package](ref)
 
@@ -324,7 +393,9 @@ PP_RUNS = [(name, source, ".vcf") for name in PP_CASES
 
 
 @pytest.mark.parametrize("name,source,suffix", PP_RUNS)
-def test_postprocess_gvcf_matches_jax(stage3, name, source, suffix):
+def test_postprocess_gvcf_matches_jax(stage3, monkeypatch, name, source,
+                                      suffix):
+    merge_by_contig(monkeypatch)
     out = {}
     for package in (JAX, PORT):
         stem = os.path.join(stage3["tmp"], f"{name}-{source}-{package}")
@@ -345,6 +416,7 @@ def test_postprocess_gvcf_matches_jax(stage3, name, source, suffix):
     assert b"<*>" in text and b"MIN_DP" in text
     vcf_text = gzip.decompress(vcf) if suffix == ".vcf.gz" else vcf
     assert b"<*>" not in vcf_text
+    assert_tiles(text.decode(), stage3[f"{source}_ref"])
     if suffix == ".vcf.gz":
         for package, tabix in ((JAX, jtabix), (PORT, ttabix)):
             stem = os.path.join(stage3["tmp"], f"{name}-{source}-{package}")
@@ -387,13 +459,13 @@ def test_in_memory_nonvariants_sort_as_the_file_does(stage3):
     assert outs[0] == outs[1]
 
 
-def test_merge_writes_each_event_before_the_next(stage3):
+def test_merge_writes_each_event_before_the_next(stage3, monkeypatch):
     """The merge yields a variant for the VCF and then mutates the same
     object for the gVCF (zero-scaled GLs, `<*>`, GL -99): each event must
     be formatted before the generator resumes. Formatted at once, the
     port's events equal the JAX package's; formatted after the merge has
     run to its end, the VCF events would carry the gVCF's alleles."""
-    def events(package, line):
+    def events(package, line, **order):
         pipe = PIPE[package]
         contigs = FASTA[package](stage3["short_ref"]).contigs
         variants = list(pipe.cvos_to_variants(
@@ -401,11 +473,14 @@ def test_merge_writes_each_event_before_the_next(stage3):
         nonvariants = pipe._read_nonvariants(stage3["short_gvcf"], contigs)
         merged = pipe.merge_variants_and_nonvariants(
             variants, nonvariants,
-            ref_lookup=ref_lookup(package, stage3["short_ref"]))
+            ref_lookup=ref_lookup(package, stage3["short_ref"]), **order)
         return [(kind, line(v)) for kind, v in merged]
 
+    # Without a contig order the port's merge is the JAX package's.
+    assert events(PORT, port_line) == events(JAX, jax_line)
+    merge_by_contig(monkeypatch)
     want = events(JAX, jax_line)
-    got = events(PORT, port_line)
+    got = events(PORT, port_line, contig_order={"chr1": 0, "chr2": 1})
     assert got == want
     vcf_lines = [line for kind, line in got if kind == "vcf"]
     assert len(vcf_lines) > 5
@@ -422,7 +497,8 @@ def test_merge_writes_each_event_before_the_next(stage3):
     assert late[0][1].alternate_bases == ["C", "<*>"]
 
 
-def test_postprocess_cli_gvcf_matches_jax(stage3, tmp_path):
+def test_postprocess_cli_gvcf_matches_jax(stage3, tmp_path, monkeypatch):
+    merge_by_contig(monkeypatch)
     outs = {}
     for package, cli in ((JAX, jcli), (PORT, tcli)):
         stem = str(tmp_path / package)
@@ -465,7 +541,7 @@ def test_postprocess_cli_gvcf_matches_jax(stage3, tmp_path):
 
 # -- the stream ---------------------------------------------------------------------
 
-def test_stream_gvcf_matches_staged_and_jax(paths, tmp_path):
+def test_stream_gvcf_matches_staged_and_jax(paths, tmp_path, monkeypatch):
     """`run_streaming_pipeline(output_gvcf=...)` with two spawned workers:
     its gVCF records are the runner's, its gVCF equals the staged route's
     (the runner's gVCF TFRecord and the stream's CVOs through the
@@ -521,6 +597,7 @@ def test_stream_gvcf_matches_staged_and_jax(paths, tmp_path):
         sorted(TFRecordReader(jax_gvcf)) == sorted(TFRecordReader(port_gvcf))
 
     # Stage 3: the staged route of each package on the same CVOs.
+    merge_by_contig(monkeypatch)
     cvo_path = str(tmp_path / "cvo.tfrecord.gz")
     with TFRecordWriter(cvo_path) as writer:
         for cvo in cvos:
@@ -538,6 +615,8 @@ def test_stream_gvcf_matches_staged_and_jax(paths, tmp_path):
         for package in (JAX, PORT):
             assert gzip.decompress(
                 (tmp_path / f"{package}{suffix}").read_bytes()) == stream
+    assert_tiles(stream.decode(), paths["ref"],
+                 [("chr1", 299, 2500), ("chr2", 199, 1100)])
 
 
 def test_jax_stream_lookup_raises_on_a_truncated_block(stage3, tmp_path):
@@ -556,6 +635,32 @@ def test_jax_stream_lookup_raises_on_a_truncated_block(stage3, tmp_path):
 
     assert "ref_lookup=ref_reader.bases" in inspect.getsource(
         jsp.run_streaming_pipeline)
+
+
+def test_jax_merge_interleaves_contigs(stage3, tmp_path):
+    """Pinned: on two contigs the JAX package's merge writes chr2's
+    variant records before chr1's last blocks and chr2's blocks whole
+    under them (ROADMAP.md Queue 3); the port's gVCF tiles."""
+    texts = {}
+    for package in (JAX, PORT):
+        stem = str(tmp_path / package)
+        PIPE[package].postprocess_variants(
+            stage3["short"], stem + ".vcf",
+            FASTA[package](stage3["short_ref"]).contigs,
+            nonvariant_site_path=stage3["short_gvcf"],
+            output_gvcf=stem + ".g.vcf",
+            ref_lookup=ref_lookup(package, stage3["short_ref"]))
+        texts[package] = open(stem + ".g.vcf").read()
+    contigs = [r[0] for r in spans(texts[JAX])]
+    first_chr2 = contigs.index("chr2")
+    assert "chr1" in contigs[first_chr2:]
+    with pytest.raises(AssertionError):
+        assert_tiles(texts[JAX], stage3["short_ref"])
+    assert_tiles(texts[PORT], stage3["short_ref"])
+    # Both hold the same records, the JAX package's with chr2's blocks
+    # unsplit where chr2's variants sit.
+    assert sorted(r for r in spans(texts[PORT]) if not r[3]) == \
+        sorted(r for r in spans(texts[JAX]) if not r[3])
 
 
 def test_stream_gvcf_constants_match_jax():
