@@ -77,14 +77,40 @@ Phases:
      record per CVO group, and its .tbi must return the records of a
      region; each prints stage 3's seconds and records per second and
      the examples per second from the BAM to the VCF.
- 10. One JSON line per the kernels, the card's name and power limit, and
+ 10. The allele-frequency model from files to a VCF and a gVCF: the
+     WGS preset with its defaults (realigner on) and the
+     allele_frequency channel appended as --use_allele_frequency does
+     (100x221x8, InceptionV3(8) with seeded weights, bfloat16, batch
+     512), a population VCF and an exclude VCF written from the seeded
+     sample's planted variants. The runner in this process with a plan
+     sink and a gVCF TFRecord (make_gvcfs seconds per kb, candidates
+     dropped by the exclude VCF), then run_streaming_pipeline with
+     output_gvcf (the stream, then stage 3 merging the workers'
+     reference blocks into the gVCF) with phase 7's checks, then the
+     staged route on the same plans: PlanPredictor on the card, the CVOs
+     to a TFRecord, the postprocess CLI with
+     --nonvariant_site_tfrecord_path and --gvcf_outfile. Both VCFs and
+     both gVCFs must be byte-identical. Then the runner with the
+     vcf_candidate_importer and a proposed VCF, its plans through
+     PlanPredictor on the card. Fails if the allele-frequency plane of
+     the first painted batch is all zero, if an excluded site is among
+     the candidates, if an importer candidate is not a proposed site,
+     if the gVCF does not tile the contigs (every A, C, G or T base
+     covered once by a reference block or a variant record, only
+     variant records overlapping one another), if a VCF record is
+     missing from the gVCF, or if the gVCF's .tbi does not answer a
+     region query. Prints the gVCF records, make_gvcfs seconds per kb
+     in one worker, the merge's seconds, the examples per second from
+     the BAM to the gVCF, and the time of parsing a population VCF of
+     COHORT_PARSE_RECORDS records whole, as every worker does.
+ 11. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
 paths) and read just after, again around phase 5 (the long-read path),
-and again around the stream of each of phases 7, 8 and 9 (in phase 9
-around run_streaming_pipeline: the stream, then stage 3, which paints
-nothing); the
+and again around the stream of each of phases 7, 8, 9 and 10 (in phases
+9 and 10 around run_streaming_pipeline: the stream, then stage 3, which
+paints nothing); the
 comparisons of phase 2 and of the checks after the paths are not
 counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
@@ -150,6 +176,7 @@ PAINT_CASES = (
 )
 SHAPE = (100, 221, 7)
 LONGREAD_SHAPE = (100, 147, 10)
+AF_SHAPE = (100, 221, 8)       # WGS and the allele_frequency channel
 N_EXAMPLES = 512
 STAGED_REPEATS = 8  # the example file is read this many times when timed
 N_PLANS = 1024
@@ -168,6 +195,12 @@ REALIGN_VARIANT_SPACING = 400
 LONGREAD_CONTIGS = (("chr1", 50_000), ("chr2", 25_000))
 # Added to phase 9's het logit (see phase_longread_stream).
 HET_BIAS = 0.5
+# Phase 10's sample: phase 8's kind of reads and variant spacing, 20 kb;
+# the realigner's 0.33-0.49 s per kb in one worker sizes it.
+AF_CONTIGS = (("chr1", 12_000), ("chr2", 8_000))
+CH_ALLELE_FREQUENCY = 8        # the channel --use_allele_frequency appends
+# Records of the population VCF whose whole-file parse phase 10 times.
+COHORT_PARSE_RECORDS = 50_000
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -886,7 +919,8 @@ def run_runner(options, tmp: str, tag: str, card: str, least_plans: int):
 
 
 def run_stream(options, kept, predictor, device, card: str, tag: str,
-               vcf: str = "", ref: str = "", sample_name: str = ""):
+               vcf: str = "", ref: str = "", sample_name: str = "",
+               gvcf: str = ""):
     """`stream_examples_to_cvos(device_encode=True)` with STREAM_WORKERS
     spawned workers on the card, between a zeroed and a read launch
     count, held against the plans the runner kept: as many CVOs, the same
@@ -894,7 +928,8 @@ def run_stream(options, kept, predictor, device, card: str, tag: str,
     kept plans batched in the stream's order, the first batch's images
     equal to the plain painter, one launch of the plan form per batch.
     With `vcf`, the stream runs inside `run_streaming_pipeline`, which
-    goes on to write that VCF from `ref`'s contigs; the CVOs it handed to
+    goes on to write that VCF from `ref`'s contigs (and with `gvcf` that
+    gVCF, from the gVCF records the workers sent); the CVOs it handed to
     stage 3 are kept (copied before stage 3 writes calls into them).
     Returns (numbers, launches, the kept plans in the stream's order, the
     CVOs)."""
@@ -923,7 +958,8 @@ def run_stream(options, kept, predictor, device, card: str, tag: str,
                 options, vcf, ref, sample_name=sample_name,
                 num_workers=STREAM_WORKERS, batch_size=BATCH,
                 device_encode=True,
-                plan_predictor_factory=lambda: predictor, device=device)
+                plan_predictor_factory=lambda: predictor, output_gvcf=gvcf,
+                device=device)
         finally:
             stream_pipeline.stream_examples_to_cvos = plain_stream
         to_vcf_s = time.time() - start
@@ -932,8 +968,14 @@ def run_stream(options, kept, predictor, device, card: str, tag: str,
             "to_vcf_s": to_vcf_s,
             "to_vcf_examples_per_s": len(cvos) / to_vcf_s,
             "pipeline_postprocess_s": to_vcf_s - stats.wall_seconds,
-            "vcf_records": result["postprocess"]["vcf_records"]})
-        print(f"[{tag}] run_streaming_pipeline to {os.path.basename(vcf)}: "
+            "vcf_records": result["postprocess"]["vcf_records"],
+            "gvcf_records": result["postprocess"]["gvcf_records"],
+            "stream_gvcf_records": stats.num_gvcf_records})
+        print(f"[{tag}] run_streaming_pipeline to {os.path.basename(vcf)}"
+              + (f" and {os.path.basename(gvcf)} "
+                 f"({result['postprocess']['gvcf_records']} gVCF records "
+                 f"from {stats.num_gvcf_records} reference blocks)"
+                 if gvcf else "") + ": "
               f"{result['postprocess']['vcf_records']} records from "
               f"{len(cvos)} CVOs in {to_vcf_s:.2f} s, "
               f"{numbers['to_vcf_examples_per_s']:.1f} examples/s from the "
@@ -1431,6 +1473,395 @@ def phase_longread_stream(tmp: str, model, device, card: str):
     return numbers, entry
 
 
+def gvcf_spans(lines) -> list:
+    """(contig, start, end, is reference block) of gVCF record lines; a
+    record's end is its END where it has one."""
+    out = []
+    for line in lines:
+        f = line.split("\t")
+        start = int(f[1]) - 1
+        end = start + len(f[3])
+        for item in f[7].split(";"):
+            if item.startswith("END="):
+                end = int(item[4:])
+        out.append((f[0], start, end, f[4] == "<*>"))
+    return out
+
+
+def check_gvcf(gvcf: str, vcf: str, ref: str, tag: str, card: str) -> dict:
+    """The gVCF tiles every contig: its reference blocks and its variant
+    records (each alt list extended by <*>) cover every A, C, G or T
+    base of the reference once and no other base, in order, contig after
+    contig; only variant records overlap, one another. Each block's REF is the reference base
+    at its start (a block that a variant truncated takes its new first
+    base from the FASTA). Every VCF record is in it, `<*>` appended. Its
+    .tbi returns the records that overlap a region, END included."""
+    from deepvariant_tpu_torch.core.types import Range
+    from deepvariant_tpu_torch.io.fasta import FastaReader
+    from deepvariant_tpu_torch.io.tabix import TabixReader, build_index
+
+    fasta = FastaReader(ref)
+    lines = vcf_records(gvcf)
+    spans = gvcf_spans(lines)
+    order = {c.name: i for i, c in enumerate(fasta.contigs)}
+    keys = [(order[c], start) for c, start, _, _ in spans]
+    if keys != sorted(keys):
+        raise AssertionError(f"{tag}: the gVCF records are out of order")
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    overlapping = n_blocks = 0
+    for contig in fasta.contigs:
+        bases = fasta.bases(Range(contig.name, 0, contig.n_bases))
+        covered = np.zeros(contig.n_bases, np.int32)
+        by_blocks = np.zeros(contig.n_bases, np.int32)
+        for (name, start, end, block), line in zip(spans, lines):
+            if name != contig.name:
+                continue
+            covered[start:end] += 1
+            if block:
+                n_blocks += 1
+                by_blocks[start:end] += 1
+                if line.split("\t")[3] != chr(bases[start]):
+                    raise AssertionError(
+                        f"{tag}: the block at {name}:{start} has REF "
+                        f"{line.split(chr(9))[3]}, the reference "
+                        f"{chr(bases[start])}")
+        dna = np.isin(bases, acgt)
+        gaps = np.flatnonzero(dna & (covered == 0))
+        beyond = np.flatnonzero(~dna & (covered > 0))
+        twice = covered > 1
+        if len(gaps) or len(beyond) or (by_blocks[twice] > 0).any():
+            raise AssertionError(
+                f"{tag}: the gVCF does not tile {contig.name}: "
+                f"{len(gaps)} bases uncovered (first {gaps[:3]}), "
+                f"{len(beyond)} non-ACGT bases covered, "
+                f"{int((by_blocks[twice] > 0).sum())} bases under a block "
+                "and another record")
+        overlapping += int(twice.sum())
+    in_gvcf = {tuple(line.split("\t")[:5]) for line in lines}
+    vcf_lines = vcf_records(vcf)
+    missing = [line for line in vcf_lines
+               if tuple(line.split("\t")[:4])
+               + (line.split("\t")[4] + ",<*>",) not in in_gvcf]
+    if missing or not vcf_lines:
+        raise AssertionError(f"{tag}: {len(missing)} of {len(vcf_lines)} VCF "
+                             f"records are not in the gVCF ({missing[:2]})")
+    if not os.path.exists(gvcf + ".tbi"):
+        build_index(gvcf)
+    # A region around a block in the middle: the index must return
+    # exactly the records that overlap it, blocks by their END.
+    name, pos, _, _ = [s for s in spans if s[3]][n_blocks // 2]
+    lo, hi = max(0, pos - 300), pos + 300
+    want = [line for line, (c, start, end, _) in zip(lines, spans)
+            if c == name and start < hi and end > lo]
+    got = list(TabixReader(gvcf).query(name, lo, hi))
+    if got != want or not got:
+        raise AssertionError(f"{tag}: the gVCF's .tbi returned {len(got)} "
+                             f"records for {name}:{lo}-{hi}, the gVCF has "
+                             f"{len(want)} there")
+    print(f"[{tag}] {os.path.basename(gvcf)}: {len(lines)} records "
+          f"({n_blocks} reference blocks) tile every A/C/G/T base of "
+          f"{len(fasta.contigs)} contigs once, in order ({overlapping} bases "
+          f"under two overlapping variant records); all {len(vcf_lines)} VCF "
+          f"records "
+          f"in it with <*>; its .tbi returns the {len(got)} records of "
+          f"{name}:{lo}-{hi}; {card}")
+    return {"gvcf_records": len(lines), "gvcf_blocks": n_blocks,
+            "gvcf_variant_overlap_bases": overlapping,
+            "gvcf_tbi_query_records": len(got)}
+
+
+def time_cohort_parse(directory: str, tag: str, card: str) -> dict:
+    """A population VCF of COHORT_PARSE_RECORDS seeded SNPs with an AF
+    each, bgzipped, and the time of the first query of its reader, which
+    parses the whole file, as each worker's first query does."""
+    from deepvariant_tpu_torch.core.types import ContigInfo, Range, Variant
+    from deepvariant_tpu_torch.io.vcf import VcfHeader, VcfWriter
+    from deepvariant_tpu_torch.make_examples.allele_frequency import (
+        make_population_vcf_readers,
+    )
+
+    rng = np.random.RandomState(SEED + 11)
+    n = COHORT_PARSE_RECORDS
+    starts = np.sort(rng.choice(n * 20, n, replace=False))
+    refs = rng.randint(0, 4, n)
+    alts = (refs + rng.randint(1, 4, n)) % 4
+    afs = np.round(rng.uniform(0.0001, 0.5, n), 4)
+    path = os.path.join(directory, "cohort.vcf.gz")
+    header = VcfHeader([ContigInfo("chr1", n * 20, 0)], [], extras=[(
+        "INFO", '<ID=AF,Number=A,Type=Float,Description="Allele '
+        'frequency">')])
+    with VcfWriter(path, header) as writer:
+        for start, r, a, af in zip(starts.tolist(), refs.tolist(),
+                                   alts.tolist(), afs.tolist()):
+            writer.write(Variant(
+                reference_name="chr1", start=start, end=start + 1,
+                reference_bases="ACGT"[r], alternate_bases=["ACGT"[a]],
+                info={"AF": [af]}))
+    start = time.time()
+    reader = make_population_vcf_readers([path])["chr1"]
+    first = list(reader.query(Range("chr1", int(starts[n // 2]),
+                                    int(starts[n // 2]) + 1)))
+    seconds = time.time() - start
+    if len(first) != 1:
+        raise AssertionError(f"{tag}: the cohort query returned {first}")
+    print(f"[{tag}] a population VCF of {n} records "
+          f"({os.path.getsize(path)} bytes) parsed whole by its first "
+          f"query in {seconds:.3f} s: {n / seconds:.1f} records/s; host CPUs "
+          f"{os.cpu_count()}, beside {card}")
+    return {"cohort_parse_records": n, "cohort_parse_s": seconds,
+            "cohort_parse_records_per_s": n / seconds}
+
+
+def phase_af_gvcf(tmp: str, model, device, card: str):
+    """Phase 10: the WGS allele-frequency model from files to a VCF and a
+    gVCF, by the stream and by the staged route, and the
+    vcf_candidate_importer. Returns (numbers, the path's kernels-line
+    entry with its launches)."""
+    import torch
+
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.core.genomics_math import round_gls
+    from deepvariant_tpu_torch.core.types import CallVariantsOutput, Variant
+    from deepvariant_tpu_torch.io.bgzf import BgzfReader
+    from deepvariant_tpu_torch.io.fasta import FastaReader
+    from deepvariant_tpu_torch.io.tfrecord import TFRecordReader, TFRecordWriter
+    from deepvariant_tpu_torch.io.vcf import VcfReader
+    from deepvariant_tpu_torch.make_examples import allele_frequency, core
+    from deepvariant_tpu_torch.make_examples.core import MakeExamplesOptions
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.make_examples.variant_caller import (
+        VerySensitiveCaller,
+    )
+    from deepvariant_tpu_torch.scripts import postprocess_variants as cli
+    from deepvariant_tpu_torch.testing import synthetic
+
+    tag = "af-gvcf"
+    kb = sum(n for _, n in AF_CONTIGS) / 1000
+    directory = os.path.join(tmp, tag)
+    sample = synthetic.synthetic_sample(
+        SEED + 10, AF_CONTIGS, variant_spacing=REALIGN_VARIANT_SPACING)
+    paths = write_sample_files(sample, directory, tag)
+    vcfs = synthetic.write_vcf_inputs(sample, directory, seed=SEED + 10,
+                                      population=True, proposed=True,
+                                      exclude=True)
+
+    def options(**more):
+        o = apply_model_preset(MakeExamplesOptions(
+            reads_filename=paths["reads"], ref_filename=paths["ref"],
+            population_vcf_filenames=[vcfs["population"]],
+            exclude_variants_vcf_filename=vcfs["exclude"], **more), "WGS")
+        # --use_allele_frequency appends the channel to the preset's.
+        o.pileup_options.channels = tuple(o.pileup_options.channels) + (
+            CH_ALLELE_FREQUENCY,)
+        return o
+
+    pileup = options().pileup_options
+    if not options().realigner_enabled:
+        raise AssertionError("the WGS preset left the realigner off")
+    af_plane = list(pileup.channels).index(CH_ALLELE_FREQUENCY)
+    if (pileup.height, pileup.width, len(pileup.channels)) != AF_SHAPE:
+        raise AssertionError(f"{tag}: the pileup is not {AF_SHAPE}")
+    print(f"[{tag}] WGS preset with its defaults (realigner on) and the "
+          f"allele_frequency channel: {pileup.height}x{pileup.width}x"
+          f"{len(pileup.channels)}; a population VCF of "
+          f"{len(list(VcfReader(vcfs['population'])))} records and an "
+          f"exclude VCF of {len(list(VcfReader(vcfs['exclude'])))}")
+
+    # Count what make_gvcfs, the exclude filter and the AF hook do during
+    # the in-process run.
+    tally = {"gvcf_s": 0.0, "gvcf_bases": 0, "blocks": 0, "filter_in": 0,
+             "filter_out": 0, "af_s": 0.0, "af_candidates": 0}
+    plain_make = VerySensitiveCaller.make_gvcfs
+    plain_filters = core.RegionProcessor._apply_candidate_filters
+    plain_af = allele_frequency.add_allele_frequencies_to_candidates
+
+    def timed_make(self, counter, **kwargs):
+        start = time.time()
+        blocks = list(plain_make(self, counter, **kwargs))
+        tally["gvcf_s"] += time.time() - start
+        tally["gvcf_bases"] += len(counter.interval) - kwargs.get(
+            "left_padding", 0) - kwargs.get("right_padding", 0)
+        tally["blocks"] += len(blocks)
+        return iter(blocks)
+
+    def counted_filters(self, candidates, batch):
+        kept = plain_filters(self, candidates, batch)
+        tally["filter_in"] += len(candidates)
+        tally["filter_out"] += len(kept)
+        return kept
+
+    def timed_af(candidates, reader, ref_reader):
+        start = time.time()
+        out = list(plain_af(candidates, reader, ref_reader))
+        tally["af_s"] += time.time() - start
+        tally["af_candidates"] += len(out)
+        return iter(out)
+
+    gvcf_records = os.path.join(directory, "gvcf.tfrecord.gz")
+    VerySensitiveCaller.make_gvcfs = timed_make
+    core.RegionProcessor._apply_candidate_filters = counted_filters
+    allele_frequency.add_allele_frequencies_to_candidates = timed_af
+    try:
+        staged_options = options(gvcf_filename=gvcf_records)
+        kept, runner = run_runner(staged_options, tmp, tag, card, 8)
+    finally:
+        VerySensitiveCaller.make_gvcfs = plain_make
+        core.RegionProcessor._apply_candidate_filters = plain_filters
+        allele_frequency.add_allele_frequencies_to_candidates = plain_af
+    n_blocks = sum(1 for _ in TFRecordReader(gvcf_records))
+    gvcf_s_per_kb = tally["gvcf_s"] / (tally["gvcf_bases"] / 1000)
+    dropped = tally["filter_in"] - tally["filter_out"]
+    print(f"[{tag}] make_gvcfs: {tally['blocks']} reference blocks over "
+          f"{tally['gvcf_bases']} bases in {tally['gvcf_s']:.3f} s, "
+          f"{gvcf_s_per_kb:.4f} s per kb in one worker; the exclude VCF "
+          f"dropped {dropped} of {tally['filter_in']} candidates; the AF hook "
+          f"matched {tally['af_candidates']} candidates in "
+          f"{tally['af_s']:.3f} s; host CPUs {os.cpu_count()}, beside {card}")
+    if n_blocks != tally["blocks"] or n_blocks == 0:
+        raise AssertionError(f"{tag}: the gVCF TFRecord holds {n_blocks} "
+                             f"records, make_gvcfs made {tally['blocks']}")
+    # No excluded site among the candidates: a site of the exclude VCF
+    # with an alt of the candidate at an AF at or above the threshold.
+    threshold = staged_options.exclude_variants_af_threshold
+    excluded = {}
+    for rec in VcfReader(vcfs["exclude"]):
+        for alt, af in zip(rec.alternate_bases, rec.info["AF"]):
+            if af >= threshold:
+                excluded.setdefault((rec.reference_name, rec.start,
+                                     rec.reference_bases), set()).add(alt)
+    candidates = [Variant.decode(buf) for buf in
+                  TFRecordReader(staged_options.candidates_filename)]
+    hits = [v for v in candidates if excluded.get(
+        (v.reference_name, v.start, v.reference_bases), set())
+        & set(v.alternate_bases)]
+    if hits or dropped == 0:
+        raise AssertionError(f"{tag}: {len(hits)} excluded sites among the "
+                             f"candidates, {dropped} candidates dropped")
+    af_rows = sum(int((p.plan["af"] != 0).sum()) for p in kept)
+    print(f"[{tag}] no excluded site among the {len(candidates)} "
+          f"candidates; {af_rows} rows of the kept plans carry a non-zero "
+          "allele frequency")
+
+    # The stream, then stage 3 with the workers' reference blocks.
+    predictor = PlanPredictor(model, pileup, batch_size=BATCH, device=device)
+    vcf = os.path.join(directory, "stream.vcf.gz")
+    gvcf = os.path.join(directory, "stream.g.vcf.gz")
+    stream, launches, ordered, cvos = run_stream(
+        options(), kept, predictor, device, card, tag, vcf=vcf,
+        ref=paths["ref"], sample_name=sample["sample_name"], gvcf=gvcf)
+    with torch.inference_mode():
+        af_pixels = int((predictor.encode(ordered[:BATCH])[..., af_plane]
+                         != 0).sum())
+    print(f"[{tag}] the allele-frequency plane of the first painted batch "
+          f"has {af_pixels} non-zero pixels")
+    if af_pixels == 0:
+        raise AssertionError(f"{tag}: the allele-frequency plane is all zero")
+    checked = check_vcf(vcf, cvos, paths["ref"], sample["sample_name"], tag,
+                        card)
+
+    # The staged route on the same plans: PlanPredictor in the stream's
+    # batches (so the same probabilities), the CVOs to a TFRecord, the
+    # postprocess CLI merging the runner's gVCF TFRecord.
+    by_locus = {locus_key(p.variant, p.alt_indices): p for p in kept}
+    planned = [by_locus[locus_key(c.variant, c.alt_allele_indices)]
+               for c in cvos]
+    probs = np.concatenate([predictor(ordered[i:i + BATCH])
+                            for i in range(0, len(ordered), BATCH)])
+    cvo_path = os.path.join(directory, "staged.cvo.tfrecord.gz")
+    with TFRecordWriter(cvo_path) as writer:
+        for p, prob in zip(planned, probs):
+            writer.write(CallVariantsOutput(
+                variant=Variant.decode(p.variant.encode()),
+                alt_allele_indices=list(p.alt_indices),
+                genotype_probabilities=round_gls(
+                    [float(x) for x in prob])).encode())
+    staged_vcf = os.path.join(directory, "staged.vcf.gz")
+    staged_gvcf = os.path.join(directory, "staged.g.vcf.gz")
+    buf = io.StringIO()
+    start = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--ref", paths["ref"], "--infile", cvo_path,
+                       "--outfile", staged_vcf,
+                       "--nonvariant_site_tfrecord_path", gvcf_records,
+                       "--gvcf_outfile", staged_gvcf])
+    merge_s = time.time() - start
+    print(f"[{tag}] postprocess_variants CLI with the gVCF merge: "
+          f"{buf.getvalue().strip()} in {merge_s:.3f} s (both outputs "
+          f"indexed); host CPUs {os.cpu_count()}, beside {card}")
+    if rc != 0:
+        raise AssertionError(f"{tag}: postprocess_variants CLI exited {rc}")
+    for stream_path, staged_path in ((vcf, staged_vcf), (gvcf, staged_gvcf)):
+        with BgzfReader(stream_path) as a, BgzfReader(staged_path) as b:
+            if a.read_all() != b.read_all():
+                raise AssertionError(
+                    f"{tag}: {os.path.basename(stream_path)} differs from "
+                    f"the staged route's {os.path.basename(staged_path)}")
+    print(f"[{tag}] the stream's VCF and gVCF == the staged route's, byte "
+          "for byte (decompressed)")
+    tiled = check_gvcf(staged_gvcf, staged_vcf, paths["ref"], tag, card)
+    if tiled["gvcf_records"] != stream["gvcf_records"]:
+        raise AssertionError(f"{tag}: {tiled['gvcf_records']} gVCF records, "
+                             f"stage 3 counted {stream['gvcf_records']}")
+
+    # The importer: candidates only at proposed sites, regions without a
+    # proposed variant skipped, its plans through PlanPredictor.
+    importer_options = options(variant_caller="vcf_candidate_importer",
+                               proposed_variants_filename=vcfs["proposed"])
+    imported, importer = run_runner(importer_options, tmp, tag + "-importer",
+                                    card, 4)
+    proposed = {(v.reference_name, v.start, v.reference_bases,
+                 tuple(v.alternate_bases))
+                for v in VcfReader(vcfs["proposed"])}
+    candidates = [Variant.decode(buf) for buf in
+                  TFRecordReader(importer_options.candidates_filename)]
+    strays = [v for v in candidates if (
+        v.reference_name, v.start, v.reference_bases,
+        tuple(v.alternate_bases)) not in proposed]
+    if strays or not candidates:
+        raise AssertionError(f"{tag}: {len(strays)} of {len(candidates)} "
+                             "importer candidates are not proposed sites")
+    with open(os.path.join(tmp, f"{tag}-importer.runtime_by_region.tsv")) as f:
+        regions_run = sum(1 for _ in f) - 1
+    regions_all = len(core.regions_to_process(
+        FastaReader(paths["ref"]).contigs, importer_options.partition_size,
+        None, None, None))
+    imported_probs = np.concatenate([
+        predictor([p.plan for p in imported[i:i + BATCH]])
+        for i in range(0, len(imported), BATCH)])
+    if imported_probs.shape != (len(imported), 3) or \
+            not np.isfinite(imported_probs).all():
+        raise AssertionError(f"{tag}: the importer's probabilities are "
+                             "malformed")
+    print(f"[{tag}] vcf_candidate_importer: {len(candidates)} candidates, "
+          f"all proposed sites ({len(proposed)} proposed), {len(imported)} "
+          f"plans classified on the card; {regions_run} of {regions_all} "
+          "regions processed (the rest hold no proposed variant)")
+    cohort = time_cohort_parse(directory, tag, card)
+
+    to_gvcf_rate = stream["to_vcf_examples_per_s"]
+    print(f"[{tag}] from the BAM to the VCF and the gVCF: "
+          f"{to_gvcf_rate:.1f} examples/s ({stream['to_vcf_s']:.2f} s, stage "
+          f"3 with the merge {stream['pipeline_postprocess_s']:.2f} s); "
+          f"{card}; host CPUs {os.cpu_count()}")
+    entry = from_files_entry("pileup_paint_plan_af_from_files", predictor,
+                             ordered, tag, card)
+    entry["launches"] = launches
+    numbers = {f"af_{k}": v for part in (runner, stream, checked, tiled,
+                                         cohort) for k, v in part.items()}
+    numbers.update({
+        "af_kb": kb, "af_make_gvcfs_s": tally["gvcf_s"],
+        "af_make_gvcfs_s_per_kb": gvcf_s_per_kb,
+        "af_gvcf_tfrecord_records": n_blocks,
+        "af_excluded_candidates": dropped, "af_hook_s": tally["af_s"],
+        "af_plane_pixels": af_pixels, "af_rows": af_rows,
+        "af_merge_cli_s": merge_s, "af_to_gvcf_examples_per_s": to_gvcf_rate,
+        "af_importer_candidates": len(candidates),
+        "af_importer_plans": len(imported),
+        "af_importer_regions": regions_run,
+        "af_regions": regions_all})
+    return numbers, entry
+
+
 def main() -> int:
     import torch
 
@@ -1498,6 +1929,11 @@ def main() -> int:
             phase_longread_stream(tmp, longread_model, device, card)
         summary.update(longread_files_numbers)
         kernels.append(longread_files_kernel)
+        # The allele-frequency model from files to a VCF and a gVCF.
+        af_numbers, af_kernel = phase_af_gvcf(
+            tmp, seeded_model(AF_SHAPE[2]), device, card)
+        summary.update(af_numbers)
+        kernels.append(af_kernel)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)

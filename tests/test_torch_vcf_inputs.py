@@ -24,7 +24,6 @@ import torch
 
 from deepvariant_tpu.core import types as jt
 from deepvariant_tpu.io.fasta import FastaReader as JaxFastaReader
-from deepvariant_tpu.io.vcf import VcfReader as JaxVcfReader
 from deepvariant_tpu.make_examples import allele_frequency as jaf
 from deepvariant_tpu.make_examples import core as jcore
 from deepvariant_tpu.make_examples import variant_caller as jvc
@@ -60,7 +59,6 @@ CORE = {JAX: jcore, PORT: tcore}
 AF = {JAX: jaf, PORT: taf}
 TYPES = {JAX: jt, PORT: tt}
 FASTA = {JAX: JaxFastaReader, PORT: PortFastaReader}
-VCF = {JAX: JaxVcfReader, PORT: PortVcfReader}
 CH_ALLELE_FREQUENCY = 8
 
 
