@@ -315,6 +315,7 @@ def run_streaming_pipeline(
     NotImplementedError as the stream does."""
     from deepvariant_tpu_torch.io.fasta import FastaReader
     from deepvariant_tpu_torch.postprocess.pipeline import (
+        fasta_ref_lookup,
         postprocess_variants,
     )
 
@@ -330,18 +331,13 @@ def run_streaming_pipeline(
     ref_reader = FastaReader(ref_path)
     pp_kwargs = dict(postprocess_kwargs or {})
     if output_gvcf:
-        from deepvariant_tpu_torch.core.types import Range
-
-        def ref_lookup(contig: str, pos: int) -> str:
-            # One base, as the postprocess CLI looks it up. (The JAX
-            # package passes `ref_reader.bases` here, which takes a Range
-            # and raises at the first block a variant truncates.)
-            return ref_reader.query(Range(contig, pos, pos + 1))
-
+        # One base, as the postprocess CLI looks it up. (The JAX package
+        # passes `ref_reader.bases` here, which takes a Range and raises
+        # at the first block a variant truncates.)
         pp_kwargs.update(
             nonvariant_site_path=gvcf_records,
             output_gvcf=output_gvcf,
-            ref_lookup=ref_lookup,
+            ref_lookup=fasta_ref_lookup(ref_reader),
         )
     pp = postprocess_variants(
         cvos, output_vcf, ref_reader.contigs, sample_name=sample_name,

@@ -19,10 +19,10 @@ import argparse
 import sys
 
 from deepvariant_tpu_torch.core.ranges import RangeSet, read_bed
-from deepvariant_tpu_torch.core.types import Range
 from deepvariant_tpu_torch.io.fasta import FastaReader
 from deepvariant_tpu_torch.io.tabix import build_index
 from deepvariant_tpu_torch.postprocess.pipeline import (
+    fasta_ref_lookup,
     postprocess_variants,
     postprocess_variants_parallel,
 )
@@ -100,9 +100,6 @@ def main(argv=None) -> int:
     if args.par_regions_bed:
         par_regions = RangeSet(read_bed(args.par_regions_bed))
 
-    def ref_lookup(contig: str, pos: int) -> str:
-        return ref.query(Range(contig, pos, pos + 1))
-
     sample_name = args.sample_name or _sample_name_from_cvos(args.infile) \
         or "default"
     regions = None
@@ -152,7 +149,7 @@ def main(argv=None) -> int:
         par_regions=par_regions,
         nonvariant_site_path=args.nonvariant_site_tfrecord_path or None,
         output_gvcf=args.gvcf_outfile or None,
-        ref_lookup=ref_lookup,
+        ref_lookup=fasta_ref_lookup(ref),
         only_keep_pass=args.only_keep_pass,
         group_variants=args.group_variants,
         phased_reads_switches_path=(

@@ -305,7 +305,7 @@ def merge_by_contig(monkeypatch, contigs=("chr1", "chr2")):
     before the first contig's last blocks and leaves the second
     contig's blocks unsplit under them
     (`test_jax_merge_interleaves_contigs`); on one contig it is right.
-    The port orders the contigs (`contig_order`), and its gVCF is the
+    The port's merge takes the contigs' order, and its gVCF is the
     JAX package's, merged contig by contig, byte for byte."""
     plain = jpipe.merge_variants_and_nonvariants
 
@@ -369,6 +369,8 @@ def assert_tiles(text, ref, regions=None):
 
 def ref_lookup(package, ref):
     reader = FASTA[package](ref)
+    if package == PORT:
+        return tpipe.fasta_ref_lookup(reader)
 
     def lookup(contig, pos):
         return reader.query(TYPES[package].Range(contig, pos, pos + 1))
@@ -465,7 +467,7 @@ def test_merge_writes_each_event_before_the_next(stage3, monkeypatch):
     be formatted before the generator resumes. Formatted at once, the
     port's events equal the JAX package's; formatted after the merge has
     run to its end, the VCF events would carry the gVCF's alleles."""
-    def events(package, line, **order):
+    def events(package, line):
         pipe = PIPE[package]
         contigs = FASTA[package](stage3["short_ref"]).contigs
         variants = list(pipe.cvos_to_variants(
@@ -473,14 +475,13 @@ def test_merge_writes_each_event_before_the_next(stage3, monkeypatch):
         nonvariants = pipe._read_nonvariants(stage3["short_gvcf"], contigs)
         merged = pipe.merge_variants_and_nonvariants(
             variants, nonvariants,
-            ref_lookup=ref_lookup(package, stage3["short_ref"]), **order)
+            *([contigs] if package == PORT else []),
+            ref_lookup=ref_lookup(package, stage3["short_ref"]))
         return [(kind, line(v)) for kind, v in merged]
 
-    # Without a contig order the port's merge is the JAX package's.
-    assert events(PORT, port_line) == events(JAX, jax_line)
     merge_by_contig(monkeypatch)
     want = events(JAX, jax_line)
-    got = events(PORT, port_line, contig_order={"chr1": 0, "chr2": 1})
+    got = events(PORT, port_line)
     assert got == want
     vcf_lines = [line for kind, line in got if kind == "vcf"]
     assert len(vcf_lines) > 5
@@ -491,7 +492,7 @@ def test_merge_writes_each_event_before_the_next(stage3, monkeypatch):
                     calls=[tt.VariantCall(genotype=[0, 1],
                                           genotype_likelihood=[-1.0, -0.5,
                                                                -2.0])])],
-        []))
+        [], PortFastaReader(stage3["short_ref"]).contigs))
     assert [kind for kind, _ in late] == ["vcf", "gvcf"]
     assert late[0][1] is late[1][1]
     assert late[0][1].alternate_bases == ["C", "<*>"]

@@ -476,7 +476,7 @@ def test_unported_options_raise(aux_files, tmp_path):
                 data["short"], path, contigs(package, data["ref"]), **kwargs)
             outs.append((stats, open(path, "rb").read()))
         assert outs[0] == outs[1] and outs[1][0]["gvcf_records"] == 0
-    assert list(tpipe.merge_variants_and_nonvariants([], [])) == []
+    assert list(tpipe.merge_variants_and_nonvariants([], [], [])) == []
     assert list(tpipe._read_nonvariants([], [])) == []
     for package in (JAX, PORT):
         with pytest.raises(ValueError, match="multiallelic model"):
