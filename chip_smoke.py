@@ -103,16 +103,35 @@ Phases:
      in one worker, the merge's seconds, the examples per second from
      the BAM to the gVCF, and the time of parsing a population VCF of
      COHORT_PARSE_RECORDS records whole, as every worker does.
- 11. One JSON line per the kernels, the card's name and power limit, and
+ 11. The one-step command, `scripts/run_deepvariant.py`, on a sample
+     like phase 10's (WGS preset with its defaults, realigner on,
+     100x221x7, a seeded checkpoint written to disk). First one shard in
+     this process with an examples file: the host painter's ms per
+     example, and beside each example the plan of the same candidate,
+     which the CUDA plan form paints; every host-painted image must equal
+     the card's bit for bit. Then (a) staged, 2 spawned make_examples
+     shards, call_variants on the card, postprocess_variants with the
+     gVCF: the shards' examples must equal the in-process shard's; (b)
+     `--stream` with the device encoder; (c) `--stream` with a
+     --channel_list the plan painter lacks (the WGS channels, gc_content
+     and read_mapping_percent: 100x221x9), so the workers paint on the
+     host. Every VCF must equal stage 3 on its CVOs and answer a .tbi
+     query, every gVCF must tile the contigs; (a)'s and (b)'s VCFs may
+     differ only at records where the CNN's bfloat16 moved a rounded
+     probability (counted and printed). Prints each stage's seconds as
+     run_deepvariant reports them, the examples per second from the BAM
+     to the VCF of each route, stage 1's examples per second per shard,
+     and the plan form's launches on (b).
+ 12. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
 paths) and read just after, again around phase 5 (the long-read path),
-and again around the stream of each of phases 7, 8, 9 and 10 (in phases
-9 and 10 around run_streaming_pipeline: the stream, then stage 3, which
-paints nothing); the
-comparisons of phase 2 and of the checks after the paths are not
-counted. Any failed check raises, and the script exits non-zero; it also
+again around the stream of each of phases 7, 8, 9 and 10 (in phases 9
+and 10 around run_streaming_pipeline: the stream, then stage 3, which
+paints nothing), and around each `--stream` run of phase 11 (the
+host-encode one must launch none); the comparisons of phase 2 and of
+the checks after the paths are not counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
 """
 
@@ -201,6 +220,13 @@ AF_CONTIGS = (("chr1", 12_000), ("chr2", 8_000))
 CH_ALLELE_FREQUENCY = 8        # the channel --use_allele_frequency appends
 # Records of the population VCF whose whole-file parse phase 10 times.
 COHORT_PARSE_RECORDS = 50_000
+# Phase 11: run_deepvariant on a sample like phase 10's (WGS defaults),
+# and the host-encode stream's channel list: the WGS channels and two
+# that the plan painter lacks (100x221x9).
+RUN_DV_CONTIGS = (("chr1", 12_000), ("chr2", 8_000))
+RUN_DV_HOST_CHANNELS = ("BASE_CHANNELS,insert_size,gc_content,"
+                        "read_mapping_percent")
+RUN_DV_HOST_SHAPE = (100, 221, 9)
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -934,7 +960,6 @@ def run_stream(options, kept, predictor, device, card: str, tag: str,
     Returns (numbers, launches, the kept plans in the stream's order, the
     CVOs)."""
     from deepvariant_tpu_torch.core.genomics_math import round_gls
-    from deepvariant_tpu_torch.core.types import CallVariantsOutput
     from deepvariant_tpu_torch.ops import pileup_paint as pp
     from deepvariant_tpu_torch.parallel import stream_pipeline
 
@@ -942,16 +967,7 @@ def run_stream(options, kept, predictor, device, card: str, tag: str,
     numbers = {}
     pp.paint_pileup.launches = 0
     if vcf:
-        seen = []
-        plain_stream = stream_pipeline.stream_examples_to_cvos
-
-        def recording(*args, **kwargs):
-            result = plain_stream(*args, **kwargs)
-            seen.append(([CallVariantsOutput.decode(c.encode())
-                          for c in result[0]], result[1]))
-            return result
-
-        stream_pipeline.stream_examples_to_cvos = recording
+        seen, restore = record_stream_cvos()
         start = time.time()
         try:
             result = stream_pipeline.run_streaming_pipeline(
@@ -961,7 +977,7 @@ def run_stream(options, kept, predictor, device, card: str, tag: str,
                 plan_predictor_factory=lambda: predictor, output_gvcf=gvcf,
                 device=device)
         finally:
-            stream_pipeline.stream_examples_to_cvos = plain_stream
+            restore()
         to_vcf_s = time.time() - start
         (cvos, stats), = seen
         numbers.update({
@@ -1862,6 +1878,302 @@ def phase_af_gvcf(tmp: str, model, device, card: str):
     return numbers, entry
 
 
+def run_deepvariant_cli(argv, tag: str, card: str):
+    """`scripts/run_deepvariant.py` `main` in this process, which must
+    exit 0; its output is printed under `tag`. Returns (output, wall
+    seconds, the seconds of each stage as it reports them)."""
+    from deepvariant_tpu_torch.scripts import run_deepvariant
+
+    buf = io.StringIO()
+    start = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = run_deepvariant.main(argv)
+    seconds = time.time() - start
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        print(f"[{tag}] {line}")
+    if rc != 0:
+        raise AssertionError(f"{tag}: run_deepvariant exited {rc}")
+    stages = {f"stage{m.group(1)}_s": float(m.group(2)) for m in re.finditer(
+        r"stage (\d) \([^)]*\): ([0-9.]+)s", text)}
+    print(f"[{tag}] run_deepvariant {seconds:.2f} s by the clock of this "
+          f"process; {card}; host CPUs {os.cpu_count()}")
+    return text, seconds, stages
+
+
+def record_stream_cvos():
+    """Wrap `stream_pipeline.stream_examples_to_cvos` so that the CVOs it
+    hands to stage 3 are kept (copied first: stage 3 writes calls into
+    them), with its StreamStats. Returns (the list that (cvos, stats)
+    are appended to, a function that puts the plain one back)."""
+    from deepvariant_tpu_torch.core.types import CallVariantsOutput
+    from deepvariant_tpu_torch.parallel import stream_pipeline
+
+    seen = []
+    plain = stream_pipeline.stream_examples_to_cvos
+
+    def recording(*args, **kwargs):
+        result = plain(*args, **kwargs)
+        seen.append(([CallVariantsOutput.decode(c.encode())
+                      for c in result[0]], result[1]))
+        return result
+
+    stream_pipeline.stream_examples_to_cvos = recording
+
+    def restore():
+        stream_pipeline.stream_examples_to_cvos = plain
+
+    return seen, restore
+
+
+def example_records(spec: str) -> list:
+    """The serialized examples of every shard of `spec`, in order."""
+    from deepvariant_tpu_torch.core.sharded_files import glob_sharded_inputs
+    from deepvariant_tpu_torch.io.tfrecord import TFRecordReader
+
+    out = []
+    for path in glob_sharded_inputs(spec):
+        with TFRecordReader(path) as reader:
+            out.extend(reader)
+    return out
+
+
+def phase_run_deepvariant(tmp: str, device, card: str):
+    """Phase 11: the one-step command, `scripts/run_deepvariant.py`, from
+    a BAM and a FASTA to a VCF and a gVCF, staged (2 shards) and
+    streamed with each encoder; the host painter held bit-exact against
+    the CUDA plan form. Returns (numbers, the kernels-line entry of the
+    device-encode stream with its launches)."""
+    import torch
+
+    from deepvariant_tpu_torch.calling.call_variants import read_cvos
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.io import examples as example_codec
+    from deepvariant_tpu_torch.make_examples.core import (
+        MakeExamplesOptions,
+        make_examples_runner,
+    )
+    from deepvariant_tpu_torch.make_examples.examples_builder import (
+        ExamplesBuilder,
+    )
+    from deepvariant_tpu_torch.make_examples.pileup import (
+        WGS_CHANNELS,
+        PileupEncoder,
+    )
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.models.checkpoint import save_variables
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.testing import synthetic
+
+    tag = "run-dv"
+    directory = os.path.join(tmp, tag)
+    sample = synthetic.synthetic_sample(
+        SEED + 11, RUN_DV_CONTIGS, variant_spacing=REALIGN_VARIANT_SPACING)
+    paths = write_sample_files(sample, directory, tag)
+    model = seeded_model(SHAPE[2])
+    checkpoint = os.path.join(directory, "ckpt")
+    save_variables(os.path.join(checkpoint, "model.msgpack"), model,
+                   {"shape": list(SHAPE), "channels": WGS_CHANNELS})
+    host_model = seeded_model(RUN_DV_HOST_SHAPE[2])
+    host_checkpoint = os.path.join(directory, "ckpt-host")
+    save_variables(os.path.join(host_checkpoint, "model.msgpack"),
+                   host_model, {"shape": list(RUN_DV_HOST_SHAPE)})
+
+    # One shard in this process: the host painter's examples, and beside
+    # them the plans of the same candidates, which the card paints.
+    options = apply_model_preset(MakeExamplesOptions(
+        reads_filename=paths["reads"], ref_filename=paths["ref"],
+        examples_filename=os.path.join(directory, "in-process.tfrecord")),
+        "WGS")
+    if not options.realigner_enabled:
+        raise AssertionError("the WGS preset left the realigner off")
+    plans, painted = [], {"s": 0.0, "calls": 0}
+    plain_build = ExamplesBuilder.build_examples_for_candidate
+    plain_paint = PileupEncoder.build_pileup
+
+    def with_plans(self, dv_call, batch, **kwargs):
+        plans.extend(self.build_plans_for_candidate(dv_call, batch))
+        yield from plain_build(self, dv_call, batch, **kwargs)
+
+    def timed_paint(self, *args, **kwargs):
+        start = time.perf_counter()
+        image = plain_paint(self, *args, **kwargs)
+        painted["s"] += time.perf_counter() - start
+        painted["calls"] += 1
+        return image
+
+    ExamplesBuilder.build_examples_for_candidate = with_plans
+    PileupEncoder.build_pileup = timed_paint
+    try:
+        start = time.time()
+        counts = make_examples_runner(options)
+        runner_s = time.time() - start
+    finally:
+        ExamplesBuilder.build_examples_for_candidate = plain_build
+        PileupEncoder.build_pileup = plain_paint
+    records = example_records(options.examples_filename)
+    if counts["examples"] != len(records) or len(records) != len(plans) \
+            or len(records) < 8:
+        raise AssertionError(
+            f"{tag}: {len(records)} examples, {len(plans)} plans, counts "
+            f"{counts}; the phase needs at least 8 of each")
+    paint_ms = 1000 * painted["s"] / len(records)
+    print(f"[{tag}] the host painter (PileupEncoder.build_pileup, one row "
+          f"at a time in numpy): {len(records)} examples in "
+          f"{painted['s']:.3f} s, {paint_ms:.3f} ms per example; the "
+          f"in-process shard (realigner on, planning beside painting) "
+          f"{runner_s:.2f} s; host CPUs {os.cpu_count()}, beside {card}")
+
+    # The host painter's images against the CUDA plan form's on the same
+    # candidates, bit for bit.
+    predictor = PlanPredictor(model, options.pileup_options,
+                              batch_size=BATCH, device=device)
+    mismatched = 0
+    with torch.inference_mode():
+        for i in range(0, len(plans), BATCH):
+            chunk = plans[i:i + BATCH]
+            images = predictor.encode([p.plan for p in chunk]).cpu().numpy()
+            for k, planned in enumerate(chunk):
+                ex = example_codec.parse_example(records[i + k])
+                if locus_key(ex.variant, ex.alt_allele_indices) != \
+                        locus_key(planned.variant, planned.alt_indices):
+                    raise AssertionError(f"{tag}: example {i + k} and its "
+                                         "plan are of other candidates")
+                if not np.array_equal(ex.image, images[k]):
+                    mismatched += 1
+    print(f"[{tag}] {len(records)} host-painted images == the CUDA plan "
+          f"form's images of the same candidates, bit for bit: "
+          f"{mismatched == 0} ({mismatched} differ)")
+    if mismatched:
+        raise AssertionError(f"{tag}: {mismatched} host-painted images "
+                             "differ from the CUDA plan form's")
+
+    def argv(name, *more, ckpt=checkpoint):
+        return ["--ref", paths["ref"], "--reads", paths["reads"],
+                "--output_vcf", os.path.join(directory, f"{name}.vcf.gz"),
+                "--output_gvcf", os.path.join(directory, f"{name}.g.vcf.gz"),
+                "--checkpoint", ckpt, "--batch_size", str(BATCH),
+                "--num_shards", str(STREAM_WORKERS),
+                "--intermediate_results_dir", os.path.join(directory, name),
+                *more]
+
+    def outputs(name):
+        return (os.path.join(directory, f"{name}.vcf.gz"),
+                os.path.join(directory, f"{name}.g.vcf.gz"))
+
+    # (a) Staged: make_examples in 2 spawned shards, call_variants on the
+    # card, postprocess_variants with the gVCF.
+    _, staged_s, stages = run_deepvariant_cli(argv("staged"), tag + " staged",
+                                              card)
+    staged_dir = os.path.join(directory, "staged")
+    staged_records = example_records(os.path.join(
+        staged_dir, f"make_examples.tfrecord@{STREAM_WORKERS}.gz"))
+    if sorted(staged_records) != sorted(records):
+        raise AssertionError(f"{tag}: the staged shards' {len(staged_records)}"
+                             f" examples differ from the in-process shard's "
+                             f"{len(records)}")
+    staged_cvos = list(read_cvos(os.path.join(
+        staged_dir, "call_variants_output.tfrecord.gz")))
+    staged_vcf, staged_gvcf = outputs("staged")
+    checked = check_vcf(staged_vcf, staged_cvos, paths["ref"], "default",
+                        tag + " staged", card)
+    tiled = check_gvcf(staged_gvcf, staged_vcf, paths["ref"],
+                       tag + " staged", card)
+    staged_rate = len(staged_records) / staged_s
+    print(f"[{tag}] staged: the shards' examples == the in-process shard's; "
+          f"{len(staged_cvos)} CVOs; from the BAM to the VCF and the gVCF "
+          f"{staged_rate:.2f} examples/s; stage 1 per shard "
+          f"{len(staged_records) / STREAM_WORKERS / stages['stage1_s']:.2f} "
+          f"examples/s; {card}")
+
+    # (b) Streamed, the plans painted on the card.
+    seen, restore = record_stream_cvos()
+    pp.paint_pileup.launches = 0
+    try:
+        text, stream_s, _ = run_deepvariant_cli(
+            argv("stream", "--stream"), tag + " stream", card)
+    finally:
+        restore()
+    launches = pp.paint_pileup.launches
+    (stream_cvos, _), = seen
+    batches = -(-len(stream_cvos) // BATCH)
+    if "encoder=device" not in text or launches != batches or \
+            len(stream_cvos) != len(staged_cvos):
+        raise AssertionError(
+            f"{tag}: the device-encode stream made {len(stream_cvos)} CVOs "
+            f"with {launches} launches of the plan form for {batches} "
+            "batches")
+    stream_vcf, stream_gvcf = outputs("stream")
+    check_vcf(stream_vcf, stream_cvos, paths["ref"], "default",
+              tag + " stream", card)
+    check_gvcf(stream_gvcf, stream_vcf, paths["ref"], tag + " stream", card)
+    # The staged and streamed VCFs differ only where the CNN's bfloat16
+    # moved a rounded probability of the record's CVO group.
+    moved = {}
+    staged_by = {locus_key(c.variant, c.alt_allele_indices): c
+                 for c in staged_cvos}
+    for c in stream_cvos:
+        other = staged_by[locus_key(c.variant, c.alt_allele_indices)]
+        if c.genotype_probabilities != other.genotype_probabilities:
+            moved[(c.variant.reference_name, c.variant.start)] = True
+    a, b = vcf_records(staged_vcf), vcf_records(stream_vcf)
+    if len(a) != len(b):
+        raise AssertionError(f"{tag}: {len(a)} staged and {len(b)} streamed "
+                             "VCF records")
+    differ = [(x, y) for x, y in zip(a, b) if x != y]
+    stray = [x for x, _ in differ if (
+        x.split("\t")[0], int(x.split("\t")[1]) - 1) not in moved]
+    print(f"[{tag}] staged VCF vs streamed VCF: {len(differ)} of {len(a)} "
+          f"records differ, all where the CNN's bfloat16 moved a rounded "
+          f"probability ({len(moved)} sites with a moved probability)")
+    if stray:
+        raise AssertionError(f"{tag}: {len(stray)} records differ where no "
+                             f"probability moved: {stray[:2]}")
+    stream_rate = len(stream_cvos) / stream_s
+
+    # (c) Streamed, a channel list the plan painter lacks: the workers
+    # paint the pileups on the host, the card runs InceptionV3(9).
+    seen, restore = record_stream_cvos()
+    pp.paint_pileup.launches = 0
+    try:
+        text, host_s, _ = run_deepvariant_cli(
+            argv("host", "--stream", "--channel_list", RUN_DV_HOST_CHANNELS,
+                 ckpt=host_checkpoint), tag + " host-encode", card)
+    finally:
+        restore()
+    (host_cvos, _), = seen
+    if "encoder=host" not in text or pp.paint_pileup.launches != 0 or \
+            len(host_cvos) != len(staged_cvos):
+        raise AssertionError(
+            f"{tag}: the host-encode stream made {len(host_cvos)} CVOs "
+            f"({pp.paint_pileup.launches} launches of the plan form)")
+    host_vcf, host_gvcf = outputs("host")
+    check_vcf(host_vcf, host_cvos, paths["ref"], "default",
+              tag + " host-encode", card)
+    check_gvcf(host_gvcf, host_vcf, paths["ref"], tag + " host-encode",
+               card)
+    print(f"[{tag}] BAM to VCF and gVCF: staged {staged_rate:.2f}, streamed "
+          f"(device encoder) {stream_rate:.2f}, streamed (host encoder, "
+          f"100x221x9) {len(host_cvos) / host_s:.2f} examples/s; the plan "
+          f"form launched {launches} times on the device-encode stream; "
+          f"{card}; host CPUs {os.cpu_count()}")
+    entry = from_files_entry("pileup_paint_plan_run_deepvariant_stream",
+                             predictor, [p.plan for p in plans], tag, card)
+    entry["launches"] = launches
+    numbers = {f"run_dv_{k}": v for k, v in {
+        **stages, **checked, **tiled,
+        "examples": len(records), "host_paint_ms_per_example": paint_ms,
+        "stage1_examples_per_s_per_shard":
+            len(staged_records) / STREAM_WORKERS / stages["stage1_s"],
+        "staged_s": staged_s, "staged_examples_per_s": staged_rate,
+        "stream_s": stream_s, "stream_examples_per_s": stream_rate,
+        "host_stream_s": host_s,
+        "host_stream_examples_per_s": len(host_cvos) / host_s,
+        "vcf_records_moved_by_bf16": len(differ),
+        "plan_form_launches": launches}.items()}
+    return numbers, entry
+
+
 def main() -> int:
     import torch
 
@@ -1934,6 +2246,11 @@ def main() -> int:
             tmp, seeded_model(AF_SHAPE[2]), device, card)
         summary.update(af_numbers)
         kernels.append(af_kernel)
+        # The one-step command, staged and streamed.
+        run_dv_numbers, run_dv_kernel = phase_run_deepvariant(
+            tmp, device, card)
+        summary.update(run_dv_numbers)
+        kernels.append(run_dv_kernel)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)

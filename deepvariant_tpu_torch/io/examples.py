@@ -17,8 +17,8 @@ Schema written by make_examples (reference make_examples_native.cc:426-464):
 Sidecar `<path>.example_info.json`: {version, shape, channels:[enum ints]}
 (make_examples_core.py:3766-3774).
 
-A copy of what stage 2 needs from `deepvariant_tpu.io.examples`; the
-bytes it writes are identical to that module's.
+The port's copy of `deepvariant_tpu.io.examples`; the bytes it writes
+are identical to that module's.
 """
 
 from __future__ import annotations
@@ -219,6 +219,36 @@ class DecodedExample:
 
 def parse_example(buf: bytes) -> DecodedExample:
     return DecodedExample(decode_example(buf))
+
+
+def example_image_shape(feats: Dict[str, list]) -> List[int]:
+    """The image/shape of a decoded example; raises when the field is
+    absent or malformed (dv_utils.example_image_shape)."""
+    shape = feats.get("image/shape", [])
+    if len(shape) != 3:
+        raise ValueError(
+            "example lacks a length-3 image/shape field: "
+            f"{sorted(feats)}"
+        )
+    return [int(x) for x in shape]
+
+
+def shape_from_examples_path(spec: str) -> Optional[List[int]]:
+    """image/shape of the first example under `spec` — a plain path,
+    an `@N` sharded spec, or a glob; None when every resolved file is
+    empty (dv_utils.get_shape_from_examples_path, dv_utils.py:190-214).
+    Unresolvable paths raise."""
+    from deepvariant_tpu_torch.io import tfrecord
+
+    resolved = glob_sharded_inputs(spec)
+    if not resolved:
+        raise FileNotFoundError(
+            f"no examples matched: {spec}"
+        )
+    for path in resolved:
+        for rec in tfrecord.read_tfrecords(path):
+            return example_image_shape(decode_example(rec))
+    return None
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ two extra channels (diff_channels/base_channels,
 pileup_image_native.h:214-255) or extra rows (rows/single_row).
 
 The port's copy of `deepvariant_tpu.make_examples.alt_aligned`. The
-planners use the trimming and the realignment; `compose_alt_aligned`
-works on host-painted images and waits for the host painter (the
+host painter and the planners use the trimming and the realignment;
+`compose_alt_aligned` joins the host-painted images in every mode (the
 diff_channels planes of a plan are composed on the card by the paint
 kernel).
 """

@@ -1,4 +1,4 @@
-"""Stage 1 orchestration: regions -> reads -> candidates -> plans.
+"""Stage 1 orchestration: regions -> reads -> candidates -> examples.
 
 The port's copy of the calling mode of one sample of
 `deepvariant_tpu.make_examples.core` (the reference's
@@ -9,28 +9,27 @@ make_examples_core.py):
     (region_reads_norealign, :2408-2449) -> optional local-assembly
     realignment (:2479) -> allele counting + very-sensitive calling or
     the proposed-VCF importer + gVCF (candidates_in_region, :2832-2990)
-    -> exclude and population-AF hooks -> device-encode plans, one per
-    (candidate, alt combination);
-  * OutputsWriter: the plan sink, the candidates and gVCF TFRecords (or
-    the gVCF sink), and the example_info.json data contract
-    (:3755-3774);
+    -> exclude and population-AF hooks -> one host-painted tf.Example or
+    one device-encode plan per (candidate, alt combination);
+  * OutputsWriter: the examples TFRecord (or the example sink), the plan
+    sink, the candidates and gVCF TFRecords (or the gVCF sink), and the
+    example_info.json data contract (:3755-3774);
   * make_examples_runner main loop (:3481) with per-region runtime
     accounting (runtime_by_region TSV, :2248-2399).
 
-Everything here runs on the host; the card paints the plans and runs
-the CNN (calling.plan_predictor). `MakeExamplesOptions` has every field
-of the JAX package's, so options print and pickle alike, but an option
-whose code is not ported yet makes `refuse_unported_options` raise
-NotImplementedError, naming the ROADMAP.md item that brings it:
-methylation (methylation-aware phasing included), the small model,
-training mode, the candidate sweep, read normalization, CRAM input, the
-alt-aligned pileups that the host painter composes (base_channels, rows,
-single_row), and host-painted examples (an examples file without a plan
-sink). The realigner (realign/), trimmed reads, the diff_channels alt
-planes, direct read phasing (phasing/direct_phasing.py, with its padded
-region, its TSVs and the candidates' phase info), gVCF records, and the
-proposed, population and exclude VCFs run, on the host like the rest of
-this module.
+Everything here runs on the host, the pileup painter
+(`pileup.PileupEncoder.build_pileup`) included; in plan mode the card
+paints the plans and runs the CNN (calling.plan_predictor).
+`MakeExamplesOptions` has every field of the JAX package's, so options
+print and pickle alike, but an option whose code is not ported yet makes
+`refuse_unported_options` raise NotImplementedError, naming the
+ROADMAP.md item that brings it: methylation (methylation-aware phasing
+and the aux-driven channels included), the small model, training mode,
+the candidate sweep, read normalization and CRAM input. The realigner
+(realign/), trimmed reads, every alt-aligned pileup mode, direct read
+phasing (phasing/direct_phasing.py, with its padded region, its TSVs and
+the candidates' phase info), gVCF records, and the proposed, population
+and exclude VCFs run, on the host like the rest of this module.
 """
 
 from __future__ import annotations
@@ -483,13 +482,7 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
             o.enable_methylation_aware_phasing:
         refuse("methylation calling and methylation-aware phasing",
                "methylation")
-    meth_channels = {
-        pileup.CH_BASE_METHYLATION, pileup.CH_BASE_6MA,
-        pileup.CH_HOMOPOLYMER_INSERTION_QUALITY,
-        pileup.CH_HOMOPOLYMER_DELETION_QUALITY,
-        pileup.CH_INTER_HOMOPOLYMER_INSERTION_QUALITY,
-    }
-    if set(p.channels) & meth_channels or (
+    if set(p.channels) & pileup.AUX_CHANNELS or (
             o.parse_sam_aux_fields
             and set(o.aux_fields_to_keep or []) & {"MM", "ML"}):
         refuse("methylation and flow-tag aux parsing (MM/ML, tp/t0)",
@@ -499,8 +492,7 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
                "the remaining read-side options")
     if o.call_small_model_examples or o.write_small_model_examples or \
             o.trained_small_model_path or o.small_model_cvo_filename or \
-            o.small_model_examples_filename or \
-            o.small_model_vaf_context_window_size:
+            o.small_model_examples_filename:
         refuse("the small model", "small_model",
                queue="ROADMAP.md Queue 1 item 6")
     if o.truth_variants_filename or o.confident_regions_filename or \
@@ -510,12 +502,6 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
                "training mode and the labelers")
     if o.normalize_reads:
         refuse("normalize_reads", "read normalization")
-    if p.alt_aligned_pileup not in ("", "none", "diff_channels"):
-        # base_channels, rows and single_row are composed from whole
-        # host-painted alt images (alt_aligned.compose_alt_aligned).
-        refuse(f"alt_aligned_pileup={p.alt_aligned_pileup!r}",
-               "the host painter build_pileup/encode_read_row and the "
-               "make_examples CLI")
 
 
 @dataclasses.dataclass
@@ -582,6 +568,17 @@ class RegionProcessor:
         options.pileup_options.min_base_quality = (
             options.min_base_quality
         )
+        if options.small_model_vaf_context_window_size != \
+                options.variant_caller_options \
+                .small_model_vaf_context_window_size:
+            # The caller populates the per-candidate context-VAF map
+            # (variant_calling_multisample.cc:1160-1164).
+            options.variant_caller_options = dataclasses.replace(
+                options.variant_caller_options,
+                small_model_vaf_context_window_size=(
+                    options.small_model_vaf_context_window_size
+                ),
+            )
         if options.proposed_variants_filename:
             from deepvariant_tpu_torch.make_examples.vcf_candidate_importer \
                 import VcfCandidateImporter
@@ -986,38 +983,45 @@ class RegionProcessor:
             ]
 
         t0 = time.perf_counter()
+        examples: List[bytes] = []
         plans: List = []
-        # Outside plan mode the examples are host-painted, which raises
-        # until the host painter is ported.
-        build = (
-            self.examples_builder.build_plans_for_candidate
-            if self.plan_mode
-            else self.examples_builder.build_examples_for_candidate
-        )
         build_images = not self.options.skip_pileup_image_generation
         for dv_call in candidates if build_images else ():
-            plans.extend(build(dv_call, batch))
+            if self.plan_mode:
+                plans.extend(
+                    self.examples_builder.build_plans_for_candidate(
+                        dv_call, batch
+                    )
+                )
+            else:
+                for built in (
+                    self.examples_builder.build_examples_for_candidate(
+                        dv_call, batch
+                    )
+                ):
+                    examples.append(built.encoded)
         runtimes["make pileup images"] = time.perf_counter() - t0
         candidates.sort(key=lambda c: c.variant.start)
-        return RegionOutputs(region, candidates, [], gvcfs, runtimes,
+        return RegionOutputs(region, candidates, examples, gvcfs, runtimes,
                              plans=plans)
 
 
 class OutputsWriter:
-    """The plan sink and the candidates and gVCF TFRecords
-    (make_examples_core.py:1182).
+    """Multiplexed TFRecord writers (make_examples_core.py:1182).
 
-    `plan_sink(PlannedExample)` receives each device-encode payload. An
-    examples path, when given, only anchors the sidecars
-    (example_info.json, run_info.json): the examples TFRecord itself
-    needs the host painter and stays empty. `gvcf_sink(Variant)`, when
-    given, receives the reference blocks in place of the gVCF TFRecord.
+    `example_sink`, when given, receives each serialized tf.Example
+    instead of the examples TFRecord: the host-encode stream's
+    replacement for the reference's shared-memory example stream
+    (stream_examples.h:51). `plan_sink(PlannedExample)` receives each
+    device-encode payload; `gvcf_sink(Variant)` receives the reference
+    blocks in place of the gVCF TFRecord.
     """
 
-    def __init__(self, options: MakeExamplesOptions, plan_sink=None,
-                 gvcf_sink=None):
+    def __init__(self, options: MakeExamplesOptions, example_sink=None,
+                 plan_sink=None, gvcf_sink=None):
         task = options.task_id
         self._writers: Dict[str, TFRecordWriter] = {}
+        self._example_sink = example_sink
         self._plan_sink = plan_sink
         self._gvcf_sink = gvcf_sink
         if options.examples_filename:
@@ -1036,6 +1040,17 @@ class OutputsWriter:
         self.counts = {name: 0 for name in
                        ("examples", "candidates", "gvcfs",
                         "small_model_cvos", "small_model_examples")}
+
+    def write_examples(self, *encoded: bytes):
+        writer = self._writers.get("examples")
+        if writer:
+            for buf in encoded:
+                writer.write(buf)
+                self.counts["examples"] += 1
+        elif self._example_sink is not None:
+            for buf in encoded:
+                self._example_sink(buf)
+                self.counts["examples"] += 1
 
     def write_plans(self, *plans):
         """Device-encode payloads count as examples (they 1:1 replace
@@ -1118,21 +1133,16 @@ def make_examples_runner(
 ) -> Dict[str, int]:
     """Main per-shard loop (make_examples_core.py:3481). Returns counts.
 
-    `plan_sink(PlannedExample)` receives the device-encode payloads: the
-    host stops after row planning, and pileup painting then runs on the
-    card before the CNN (calling.plan_predictor). `gvcf_sink(Variant)`
-    replaces the gVCF TFRecord in fused-stream runs. The other sinks of
-    the JAX package's runner belong to code that is not ported (the host
-    painter, the small model) and raise."""
+    `example_sink(serialized_example)` replaces the examples TFRecord
+    for the host-encode stream (leave examples_filename empty).
+    `plan_sink(PlannedExample)` receives the device-encode payloads
+    instead: the host stops after row planning, and pileup painting then
+    runs on the card before the CNN (calling.plan_predictor).
+    `gvcf_sink(Variant)` replaces the gVCF TFRecord in fused-stream
+    runs. `small_model_cvo_sink` belongs to the small model, which is
+    not ported, and raises."""
     if example_sink is not None and plan_sink is not None:
         raise ValueError("pass example_sink or plan_sink, not both")
-    if example_sink is not None or (
-            options.examples_filename and plan_sink is None):
-        raise NotImplementedError(
-            "host-painted examples (an example_sink, or examples_filename "
-            "without a plan_sink) need the host painter, which is not "
-            f"ported yet; {_QUEUE} (the host painter build_pileup/"
-            "encode_read_row and the make_examples CLI)")
     if small_model_cvo_sink is not None:
         raise NotImplementedError(
             "small_model_cvo_sink is not ported yet; ROADMAP.md Queue 1 "
@@ -1217,8 +1227,8 @@ def make_examples_runner(
     runtime_rows = []
     sitelist: List[str] = []
     n_candidates_logged = 0
-    with OutputsWriter(options, plan_sink=plan_sink,
-                       gvcf_sink=gvcf_sink) as writer:
+    with OutputsWriter(options, example_sink=example_sink,
+                       plan_sink=plan_sink, gvcf_sink=gvcf_sink) as writer:
         for region in regions:
             outputs = processor.process(region)
             if options.output_sitelist:
@@ -1238,6 +1248,7 @@ def make_examples_runner(
                         options.task_id, n_candidates_logged,
                         region.reference_name, region.start, region.end,
                     )
+            writer.write_examples(*outputs.examples)
             writer.write_plans(*outputs.plans)
             writer.write_candidates(*outputs.candidates)
             writer.write_gvcfs(*outputs.gvcfs)

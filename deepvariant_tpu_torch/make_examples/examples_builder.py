@@ -1,15 +1,18 @@
-"""Candidates to device-encode plans (ExamplesGenerator parity).
+"""Candidates to tf.Examples and device-encode plans (ExamplesGenerator
+parity).
 
 The port's copy of `deepvariant_tpu.make_examples.examples_builder`,
 which mirrors make_examples_native.cc: AltAlleleCombinations (:191-268),
-GetReferenceBasesForPileup (:516-540, N-padding at contig edges) and
+GetReferenceBasesForPileup (:516-540, N-padding at contig edges),
 CreateAndWriteExamplesForCandidate (:632-720, read-overlap window
-selection). Ported: the plan path (`build_plans_for_candidate`), whose
-painting runs on the card, with trimmed reads
-(`prepare_candidate_batch`) and the reads realigned to each alt
-haplotype (`iter_alt_batches`) that the diff_channels planes are planned
-from. Not ported, and raising: the host painter
-(`build_examples_for_candidate`, ROADMAP.md Queue 1 item 3).
+selection) and EncodeExample's feature schema (:388-470). Two outputs
+per (candidate, alt combination): a host-painted tf.Example
+(`build_examples_for_candidate`, through `PileupEncoder.build_pileup`,
+with the alt-aligned images that `alt_aligned.compose_alt_aligned` joins
+in every mode), or a plan whose painting runs on the card
+(`build_plans_for_candidate`). Both take the same trimmed reads
+(`prepare_candidate_batch`) and reads realigned to each alt haplotype
+(`iter_alt_batches`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from deepvariant_tpu_torch.core.types import Range, Variant
+from deepvariant_tpu_torch.io import examples as example_codec
 from deepvariant_tpu_torch.io.bam import ReadBatch
 from deepvariant_tpu_torch.make_examples.pileup import (
     PileupEncoder,
@@ -159,9 +163,9 @@ class ExamplesBuilder:
 
         Yields (remapped_call, alt_batch, alt_sort_positions,
         hap_window) per alt in combo, or None when the haplotype is too
-        short. What the planner (pileup_device.plan_longread_example)
-        plans the alt-aligned planes from; the host painter, once
-        ported, shares it, so both see identical realigned read sets."""
+        short. Shared by the host painter (_build_alt_images) and the
+        planner (pileup_device.plan_longread_example), so both see
+        identical realigned read sets."""
         from deepvariant_tpu_torch.io.bam import ReadBatch as _RB
         from deepvariant_tpu_torch.make_examples import alt_aligned as aa
 
@@ -206,6 +210,36 @@ class ExamplesBuilder:
                 haplotype[: o.width].encode(), np.uint8
             )
             yield (remapped, alt_batch, alt_sort_pos, hap_window)
+
+    def _build_alt_images(
+        self,
+        dv_call: DeepVariantCall,
+        batch: ReadBatch,
+        combo: Sequence[str],
+        sort_positions=None,
+    ) -> List[Optional[np.ndarray]]:
+        """One pileup per alt in combo, reads realigned to the alt
+        haplotype (CreateAltAlignedImages, make_examples_native.cc:553).
+
+        `batch` is the already-trimmed pileup batch (the caller trims
+        whenever alt alignment is needed); `sort_positions` carries the
+        reads' original alignment positions so alt rows sort exactly
+        like the reference's (alignment_positions,
+        pileup_image_native.cc:397-401)."""
+        alt_images: List[Optional[np.ndarray]] = []
+        for item in self.iter_alt_batches(
+            dv_call, batch, combo, sort_positions=sort_positions
+        ):
+            if item is None:
+                alt_images.append(None)
+                continue
+            remapped, alt_batch, alt_sort_pos, hap_window = item
+            alt_images.append(self.encoder.build_pileup(
+                remapped, hap_window, alt_batch,
+                np.arange(len(alt_batch)), combo,
+                sort_positions=alt_sort_pos,
+            ))
+        return alt_images
 
     def prepare_candidate_batch(
         self,
@@ -295,12 +329,50 @@ class ExamplesBuilder:
         label_fn=None,
         allowed_alt_index_sets=None,
     ) -> Iterator[BuiltExample]:
-        """Host-painted tf.Examples: needs the host painter, not ported."""
-        raise NotImplementedError(
-            "the host painter (build_pileup, encode_read_row) is not "
-            "ported, so examples are built only as device-encode plans "
-            "(build_plans_for_candidate); ROADMAP.md Queue 1 item 3 (the "
-            "host painter)")
+        from deepvariant_tpu_torch.make_examples import alt_aligned as aa
+
+        variant = dv_call.variant
+        ref_window = self.reference_window(variant)
+        if ref_window is None or len(ref_window) != self.pileup_options.width:
+            return
+        alt_index = {a: i for i, a in enumerate(variant.alternate_bases)}
+        locus = f"{variant.reference_name}:{variant.start + 1}-{variant.end}"
+        needs_alt = self.need_alt_alignment(variant)
+        mode = self.pileup_options.alt_aligned_pileup
+        dv_call, batch, read_indices, sort_positions = \
+            self.prepare_candidate_batch(dv_call, batch)
+        for combo in alt_allele_combinations(
+            variant, self.pileup_options.multi_allelic_mode,
+            allowed_alt_index_sets=allowed_alt_index_sets,
+        ):
+            image = self.encoder.build_pileup(
+                dv_call, ref_window, batch, read_indices, combo,
+                sort_positions=sort_positions,
+            )
+            if mode and mode != "none":
+                # The composed shape is constant for all examples; when
+                # this variant needs no alt alignment (e.g. SNPs with
+                # types_to_alt_align=indels) the alt planes are zeros
+                # (FillPileupArray's empty-alt handling).
+                alt_images = self._build_alt_images(
+                    dv_call, batch, combo,
+                    sort_positions=sort_positions,
+                ) if needs_alt else [None, None]
+                image = aa.compose_alt_aligned(image, alt_images, mode,
+                                               combo)
+            indices = sorted(alt_index[a] for a in combo if a in alt_index)
+            label = None
+            if label_fn is not None:
+                label = label_fn(variant, indices)
+            encoded = example_codec.make_example(
+                variant,
+                image,
+                indices,
+                locus,
+                sequencing_type=self.sequencing_type,
+                label=label,
+            )
+            yield BuiltExample(encoded, variant, indices, image, label)
 
     def supports_device_encode(self) -> bool:
         """True when this channel/alt-mode config can be painted by the

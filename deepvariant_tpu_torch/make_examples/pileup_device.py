@@ -118,20 +118,25 @@ def build_region_tensors(
         batch._plan_walk_cache = cache
         batch._plan_ref_ends = batch.reference_ends()
     ends = batch._plan_ref_ends
+    # A read whose first aligned op is an insertion paints its anchor at
+    # pos - 1 (`PileupEncoder._walk_events_with_positions`, the host
+    # painter), so the walk and the overlap test start a column left of
+    # the read. (The JAX package's planner walks from pos and drops that
+    # anchor, so its plan and its host image differ there.)
     overlapping = np.flatnonzero(
-        (batch.pos < span_end) & (ends > span_start)
+        (batch.pos <= span_end) & (ends > span_start)
     )
     for r in overlapping:
         r = int(r)
         entry = cache.get(r)
         if entry is None:
-            pos = int(batch.pos[r])
-            span = max(int(ends[r]) - pos, 1)
-            c_local, b, q = encoder._walk_events(batch, r, pos, span)
+            first = int(batch.pos[r]) - 1
+            span = max(int(ends[r]) - first, 2)
+            c_local, b, q = encoder._walk_events(batch, r, first, span)
             if c_local is None:
                 entry = (None, None, None)
             else:
-                entry = (c_local + pos, b, q)  # global columns
+                entry = (c_local + first, b, q)  # global columns
             cache[r] = entry
         cols_g, b, q = entry
         if cols_g is None:

@@ -5,7 +5,11 @@ flags and exit codes plus `--device`: inference runs on CUDA, in
 bfloat16, unless `--device cpu` asks for the CPU, where it runs in
 float32. The checkpoint is a flax msgpack file from the JAX package or
 the port (models/checkpoint.py), or seed-0 initial weights for smoke
-runs with --allow_uninitialized_model.
+runs with --allow_uninitialized_model. `resolve_checkpoint_path`,
+`load_variables_for_examples` and `load_variables_for_shape` (the
+shape-based loaders that the stream and run_deepvariant use) are those
+of models/checkpoint.py, importable from here as from the JAX CLI; in
+the port the loaded weights live in the returned model.
 
 Run: python -m deepvariant_tpu_torch.scripts.call_variants \\
        --examples ex.tfrecord.gz --outfile cvo.tfrecord.gz --checkpoint dir
@@ -21,8 +25,10 @@ import torch
 
 from deepvariant_tpu_torch.calling.call_variants import call_variants
 from deepvariant_tpu_torch.device import resolve_device
-from deepvariant_tpu_torch.models.checkpoint import (
+from deepvariant_tpu_torch.models.checkpoint import (  # noqa: F401
     load_variables_for_examples,
+    load_variables_for_shape,
+    resolve_checkpoint_path,
 )
 
 

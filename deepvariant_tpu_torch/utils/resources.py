@@ -96,6 +96,10 @@ class ResourceMonitor:
                 io = ps.Process().io_counters()
                 out["read_bytes"] = io.read_bytes
                 out["write_bytes"] = io.write_bytes
-            except (ps.Error, AttributeError, NotImplementedError):
+            except (ps.Error, AttributeError, NotImplementedError,
+                    ValueError):
+                # ValueError: a /proc/<pid>/io without the fields psutil
+                # parses (some sandboxed kernels write `char` for
+                # `rchar`); the byte counts are then left out.
                 pass
         return out

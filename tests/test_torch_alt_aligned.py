@@ -429,12 +429,27 @@ def test_runner_with_trimmed_and_alt_aligned_pileups_matches_jax(
 
 @pytest.mark.parametrize("mode", ["base_channels", "rows", "single_row"])
 def test_host_composed_alt_modes_still_raise(short_paths, mode):
-    options = preset_options(PORT, short_paths)
-    options.pileup_options.alt_aligned_pileup = mode
-    with pytest.raises(NotImplementedError, match="host painter"):
-        tcore.RegionProcessor(options)
-    assert not jcore.RegionProcessor(to_package(options, JAX)) \
-        .examples_builder.supports_device_encode()
+    """The alt modes that join whole host-painted alt images are ported:
+    with the WGS defaults (realigner on) and indels aligned to their alt
+    haplotypes, a region's examples are the JAX processor's, byte for
+    byte. Neither package paints them from plans."""
+    outputs = []
+    for package in (JAX, PORT):
+        options = preset_options(package, short_paths)
+        options.pileup_options.alt_aligned_pileup = mode
+        processor = CORES[package].RegionProcessor(options)
+        assert not processor.examples_builder.supports_device_encode()
+        outputs.append(processor.process(TYPES[package].Range(
+            "chr1", 0, 4000)))
+    want, got = outputs
+    assert got.examples == want.examples and len(got.examples) >= 8
+    assert any(len(c.variant.reference_bases) > 1 or any(
+        len(a) > 1 for a in c.variant.alternate_bases)
+        for c in got.candidates)
+    shape = CORES[PORT].RegionProcessor(options).examples_builder \
+        .example_shape()
+    assert shape == {"base_channels": (100, 221, 9), "rows": (300, 221, 7),
+                     "single_row": (200, 221, 7)}[mode]
 
 
 @pytest.mark.parametrize("preset", ["PACBIO", "MASSEQ", "ONT_R104"])

@@ -81,6 +81,9 @@ RUNS = {
         parse_sam_aux_fields=True, create_complex_alleles=True,
         track_ref_reads=True, regions=["chr1:500-4,000", "chr2"],
         exclude_regions=["chr1:1000-1500"], sample_name="given"),
+    # The CLI's default: the caller fills each candidate's context VAFs,
+    # which the plans and candidates do not carry.
+    "vaf-context-window": dict(small_model_vaf_context_window_size=51),
     "downsampled-keep-all": dict(
         downsample_fraction=0.6, keep_secondary_alignments=True,
         keep_supplementary_alignments=True, discard_non_dna_regions=True,
@@ -163,6 +166,27 @@ def test_sidecars_and_runtime_tsv(paths, tmp_path):
                                 "chr2:2001-3000"]
 
 
+def test_run_info_without_the_io_counters(paths, tmp_path, monkeypatch):
+    """A kernel whose /proc/<pid>/io lacks the fields psutil parses makes
+    `io_counters` raise ValueError (the card's machine writes `char` for
+    `rchar`); the run_info sidecar is written without the byte counts."""
+    import psutil
+
+    from deepvariant_tpu_torch.utils.resources import ResourceMonitor
+
+    def unreadable(self):
+        raise ValueError("b'rchar' field was not found in /proc/1/io")
+
+    monkeypatch.setattr(psutil.Process, "io_counters", unreadable)
+    metrics = ResourceMonitor().start().metrics()
+    assert "read_bytes" not in metrics and metrics["wall_time_seconds"] >= 0
+    examples = str(tmp_path / "e.tfrecord")
+    tcore.make_examples_runner(wgs_options(PORT, paths, regions=["chr2:1-900"],
+                                           examples_filename=examples))
+    with open(examples + ".run_info.json") as f:
+        assert "write_bytes" not in json.load(f)["resource_metrics"]
+
+
 # -- options ------------------------------------------------------------------
 
 def test_options_have_every_field_and_print_alike(paths):
@@ -212,7 +236,6 @@ UNPORTED = {
     "small-model-path": dict(trained_small_model_path="m"),
     "small-model-cvos": dict(small_model_cvo_filename="c.tfrecord"),
     "small-model-examples": dict(small_model_examples_filename="e.tfrecord"),
-    "small-model-context": dict(small_model_vaf_context_window_size=51),
     "training": dict(mode="training"),
     "truth": dict(truth_variants_filename="t.vcf.gz"),
     "confident-regions": dict(confident_regions_filename="c.bed"),
@@ -236,11 +259,22 @@ def test_unported_options_raise(paths, name):
 
 
 @pytest.mark.parametrize("mode", ["base_channels", "rows", "single_row"])
-def test_alt_aligned_pileups_raise(paths, mode):
-    options = wgs_options(PORT, paths)
-    options.pileup_options.alt_aligned_pileup = mode
-    with pytest.raises(NotImplementedError, match="alt_aligned"):
-        tcore.RegionProcessor(options)
+def test_alt_aligned_pileups_raise(paths, tmp_path, mode):
+    """The alt modes that compose whole host-painted alt images are
+    ported: the runner writes the JAX runner's examples TFRecord and
+    example_info.json, byte for byte."""
+    written = []
+    for package, core in ((JAX, jcore), (PORT, tcore)):
+        options = wgs_options(
+            package, paths, regions=["chr1:1,000-3,000"],
+            examples_filename=str(tmp_path / f"{package}.tfrecord"))
+        options.pileup_options.alt_aligned_pileup = mode
+        counts = core.make_examples_runner(options)
+        assert counts["examples"] > 10
+        written.append(options.examples_filename)
+    for suffix in ("", ".example_info.json"):
+        assert filecmp.cmp(written[0] + suffix, written[1] + suffix,
+                           shallow=False)
 
 
 @pytest.mark.parametrize("channel", [23, 24, 28, 29, 30])
@@ -276,22 +310,39 @@ def test_long_read_presets_raise_until_phasing_is_ported(paths, preset):
 
 def test_sinks_without_ported_code_raise(paths, tmp_path):
     sink = lambda item: None  # noqa: E731
-    cases = [
-        (dict(examples_filename=str(tmp_path / "e.tfrecord")), {}),
-        ({}, dict(example_sink=sink)),
-        ({}, dict(plan_sink=sink, small_model_cvo_sink=sink)),
-    ]
-    for overrides, sinks in cases:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-            tcore.make_examples_runner(wgs_options(PORT, paths, **overrides),
-                                       **sinks)
+    # The small model's sink still raises.
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
+        tcore.make_examples_runner(wgs_options(PORT, paths), plan_sink=sink,
+                                   small_model_cvo_sink=sink)
     with pytest.raises(ValueError, match="not both"):
         tcore.make_examples_runner(wgs_options(PORT, paths),
                                    example_sink=sink, plan_sink=sink)
-    # Outside plan mode a region's examples need the host painter.
+    # The host painter is ported: an examples file without a plan sink
+    # and an example sink receive the JAX runner's examples.
+    region = dict(regions=["chr1:1,001-2,000"])
+    path = str(tmp_path / "e.tfrecord")
+    counts = tcore.make_examples_runner(
+        wgs_options(PORT, paths, examples_filename=path, **region))
+    jpath = str(tmp_path / "jax.tfrecord")
+    jcore.make_examples_runner(
+        wgs_options(JAX, paths, examples_filename=jpath, **region))
+    assert filecmp.cmp(path, jpath, shallow=False)
+    sunk = []
+    assert tcore.make_examples_runner(
+        wgs_options(PORT, paths, **region), example_sink=sunk.append) == \
+        counts
+    from deepvariant_tpu_torch.io.tfrecord import TFRecordReader
+
+    with TFRecordReader(path) as reader:
+        assert sunk == list(reader) and len(sunk) > 10
+    # Outside plan mode a region's examples are host-painted, as the
+    # JAX processor paints them.
     processor = tcore.RegionProcessor(wgs_options(PORT, paths))
-    with pytest.raises(NotImplementedError, match="host painter"):
-        processor.process(tt.Range("chr1", 1000, 2000))
+    outputs = processor.process(tt.Range("chr1", 1000, 2000))
+    want = jcore.RegionProcessor(wgs_options(JAX, paths)).process(
+        jt.Range("chr1", 1000, 2000))
+    assert outputs.examples == want.examples and not outputs.plans
+    assert len(outputs.examples) == len(sunk)
     # The gVCF is ported: a gVCF sink receives the reference blocks, and
     # candidates_in_region returns them, as in the JAX package.
     region = tt.Range("chr1", 1000, 2000)

@@ -35,7 +35,8 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "postprocess.multiallelic_model", "postprocess.pipeline",
     "realign.config", "realign.debruijn_graph", "realign.fast_pass_aligner",
     "realign.realigner", "realign.ssw", "realign.window_selector",
-    "scripts.call_variants", "scripts.postprocess_variants",
+    "scripts.call_variants", "scripts.make_examples",
+    "scripts.postprocess_variants", "scripts.run_deepvariant",
     "testing.synthetic",
     "utils.resources",
 ))
@@ -134,6 +135,25 @@ def test_stream_worker_runs_without_jax(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "clean" in out.stdout
+
+
+@pytest.mark.parametrize("script", ["make_examples", "run_deepvariant"])
+def test_clis_answer_help_without_jax(script, tmp_path):
+    """`python -m deepvariant_tpu_torch.scripts.<script> --help` with the
+    forbidden packages made unimportable (stand-ins that raise on import
+    come first on the path)."""
+    for name in FORBIDDEN:
+        pkg = tmp_path / name
+        pkg.mkdir()
+        (pkg / "__init__.py").write_text(
+            f"raise ImportError('the port must not import {name}')\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
+    out = subprocess.run(
+        [sys.executable, "-m", f"deepvariant_tpu_torch.scripts.{script}",
+         "--help"], cwd=str(tmp_path), env=env, capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith(f"usage: {script}")
 
 
 def _imports(path):

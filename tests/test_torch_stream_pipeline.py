@@ -185,28 +185,53 @@ def test_device_defaults_to_the_card_and_a_missing_card_raises(paths, model):
                                    device_encode=True)
 
 
-def test_unported_modes_raise(paths, model):
-    options = wgs_options(PORT, paths)
-    with pytest.raises(NotImplementedError, match="host painter"):
-        sp.stream_examples_to_cvos(options, 2, model=model, device="cpu")
-    with pytest.raises(NotImplementedError, match="host painter"):
-        sp.stream_examples_to_cvos(options, 2, variables={}, device="cpu",
-                                   device_encode=True)
-    with pytest.raises(NotImplementedError, match="host painter"):
-        sp.stream_examples_to_cvos(options, 2, device="cpu",
-                                   predictor_factory=lambda shape: None,
-                                   device_encode=True)
-    # gVCF records through the queues are ported
-    # (tests/test_torch_gvcf.py); with host encoding they still refuse.
-    with pytest.raises(NotImplementedError, match="host painter"):
-        sp.stream_examples_to_cvos(options, 2, model=model, device="cpu",
-                                   want_gvcf=True)
+def test_unported_modes_raise(paths, model, tmp_path):
+    """Host-encode streaming is ported: workers paint tf.Examples and the
+    parent classifies their images with `Predictor`, built from `model`
+    or by `predictor_factory` from the first image's shape, gVCF records
+    included; the CVOs equal the device-encode stream's (the same images,
+    float32; 1e-6). The JAX package's flax `variables` are not taken."""
+    options = wgs_options(PORT, paths, regions=["chr2:200-1,100"])
+    device_cvos, _, device_gvcfs = sp.stream_examples_to_cvos(
+        options, 2, model=model, batch_size=BATCH, device_encode=True,
+        device="cpu", dtype=torch.float32, want_gvcf=True)
+    host_cvos, stats, host_gvcfs = sp.stream_examples_to_cvos(
+        options, 2, model=model, batch_size=BATCH, device="cpu",
+        dtype=torch.float32, want_gvcf=True)
+    assert not stats.device_encode and stats.num_cvos == len(host_cvos) > 5
+    assert sorted(v.encode() for v in host_gvcfs) == \
+        sorted(v.encode() for v in device_gvcfs)
+    shapes = []
+
+    def factory(shape):
+        from deepvariant_tpu_torch.calling.call_variants import Predictor
+
+        shapes.append(shape)
+        return Predictor(model, batch_size=BATCH, device="cpu",
+                         dtype=torch.float32)
+
+    factory_cvos, _, gvcfs = sp.stream_examples_to_cvos(
+        options, 1, device="cpu", predictor_factory=factory)
+    assert shapes == [(100, 221, 7)] and gvcfs is None
+    for cvos in (host_cvos, factory_cvos):
+        got, want = sorted(cvos, key=locus), sorted(device_cvos, key=locus)
+        assert [locus(c) for c in got] == [locus(c) for c in want]
+        for g, w in zip(got, want):
+            assert g.variant.encode() == w.variant.encode()
+            np.testing.assert_allclose(g.genotype_probabilities,
+                                       w.genotype_probabilities, atol=1e-6)
+    with pytest.raises(TypeError, match="variables"):
+        sp.stream_examples_to_cvos(options, 2, variables={}, device="cpu")
+    with pytest.raises(ValueError, match="predictor_factory or model"):
+        sp.stream_examples_to_cvos(options, 2, device="cpu")
     with pytest.raises(ValueError, match="plan_predictor_factory or model"):
         sp.stream_examples_to_cvos(options, 2, device="cpu",
                                    device_encode=True)
-    with pytest.raises(NotImplementedError, match="host painter"):
-        sp.run_streaming_pipeline(options, "out.vcf", paths["ref"],
-                                  model=model, device="cpu")
+    result = sp.run_streaming_pipeline(
+        options, str(tmp_path / "out.vcf"), paths["ref"], model=model,
+        num_workers=1, batch_size=BATCH, device="cpu", dtype=torch.float32)
+    assert result["stream_device_encode"] is False
+    assert result["postprocess"]["vcf_records"] > 3
 
 
 def test_a_failing_worker_fails_the_stream(paths, model):

@@ -176,20 +176,33 @@ def test_streaming_vcf_matches_jax(name, tmp_path, monkeypatch):
 
 
 def test_run_streaming_pipeline_refuses_as_the_stream_does(tmp_path):
+    """Host encoding is ported: `run_streaming_pipeline` without
+    `device_encode` paints on the workers and writes the VCF, and with
+    `output_gvcf` the gVCF beside it; both VCFs are the device-encode
+    run's, byte for byte (float32 on the CPU, no record where a rounded
+    probability moved at this size). A missing card still raises."""
     paths = write_stage1_inputs(
         sparse_sample(8, (("chr1", 2000),)), tmp_path / "in")
     options = preset_options(PORT, paths, "WGS")
-    with pytest.raises(NotImplementedError, match="host painter"):
-        sp.run_streaming_pipeline(options, str(tmp_path / "a.vcf"),
-                                  paths["ref"], model=iv3.InceptionV3(7),
-                                  device="cpu")
-    # output_gvcf is ported (tests/test_torch_gvcf.py); with host
-    # encoding it refuses as the stream does.
-    with pytest.raises(NotImplementedError, match="host painter"):
-        sp.run_streaming_pipeline(options, str(tmp_path / "a.vcf"),
-                                  paths["ref"], model=iv3.InceptionV3(7),
-                                  device="cpu",
-                                  output_gvcf=str(tmp_path / "g.vcf"))
+    torch.manual_seed(3)
+    model = iv3.InceptionV3(7)
+    written = {}
+    for name, encode, gvcf in (("host", False, ""),
+                               ("host-gvcf", False, "g.vcf"),
+                               ("device", True, "")):
+        out = str(tmp_path / f"{name}.vcf")
+        result = sp.run_streaming_pipeline(
+            options, out, paths["ref"], model=model, device="cpu",
+            dtype=torch.float32, batch_size=BATCH, device_encode=encode,
+            output_gvcf=str(tmp_path / gvcf) if gvcf else "")
+        assert result["stream_device_encode"] is encode
+        assert result["postprocess"]["vcf_records"] > 1
+        with open(out) as f:
+            written[name] = f.read()
+        if gvcf:
+            assert result["stream_gvcf_records"] > 10
+            assert result["postprocess"]["gvcf_records"] > 10
+    assert written["host"] == written["host-gvcf"] == written["device"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA was requested"):
             sp.run_streaming_pipeline(options, str(tmp_path / "a.vcf"),

@@ -486,3 +486,30 @@ def make_reads(package, specs, reference_name="chr1"):
             position=position, mapping_quality=mapq,
             cigar=cigar.parse_cigar_string(cigar_string)))
     return reads
+
+
+# -- stage 3 ------------------------------------------------------------------
+
+def merge_by_contig(monkeypatch, contigs=("chr1", "chr2")):
+    """Run the JAX package's gVCF merge one contig at a time. Its merge
+    puts a variant first whenever the two streams stand on different
+    contigs, so with two contigs it writes the second contig's variants
+    before the first contig's last blocks and leaves the second
+    contig's blocks unsplit under them
+    (`test_jax_merge_interleaves_contigs`); on one contig it is right.
+    The port's merge takes the contigs' order, and its gVCF is the
+    JAX package's, merged contig by contig, byte for byte."""
+    from deepvariant_tpu.postprocess import pipeline as jpipe
+
+    plain = jpipe.merge_variants_and_nonvariants
+
+    def by_contig(variants, nonvariants, ref_lookup=None,
+                  only_keep_pass=False):
+        variants, nonvariants = list(variants), list(nonvariants)
+        for name in contigs:
+            yield from plain(
+                [v for v in variants if v.reference_name == name],
+                [v for v in nonvariants if v.reference_name == name],
+                ref_lookup=ref_lookup, only_keep_pass=only_keep_pass)
+
+    monkeypatch.setattr(jpipe, "merge_variants_and_nonvariants", by_contig)
