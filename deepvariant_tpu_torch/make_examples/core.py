@@ -1279,9 +1279,12 @@ def make_examples_runner(
     if options.output_local_read_phasing_filename:
         # TSV (fragment_name, phase, region_order)
         # (READ_PHASES_OUTPUT_COLUMNS,
-        # make_examples_core.py:111,1258-1266).
-        with open(options.output_local_read_phasing_filename,
-                  "w") as f:
+        # make_examples_core.py:111,1258-1266), one per shard: a
+        # 'name@N.tsv' spec resolves to this task's file, as the
+        # merge_phased_reads input spec expects.
+        with open(maybe_sharded_output_path(
+                options.output_local_read_phasing_filename,
+                options.task_id), "w") as f:
             f.write("fragment_name\tphase\tregion_order\n")
             for key, read_phase, region_n in processor.read_phase_rows:
                 f.write(f"{key}\t{read_phase}\t{region_n}\n")
