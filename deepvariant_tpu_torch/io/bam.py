@@ -7,8 +7,9 @@ into structure-of-arrays, so allele counting and the pileup planners
 vectorize over reads. `BamReader.query` and `iterate` decode records
 with the numpy/Python decoder (`_scan_records`); the JAX package's
 reader takes a native scanner when its C++ library is built, and both
-give the same `ReadBatch`. `apply_original_quality_scores`,
-`parse_methylation` and `parse_ultima_tags` are not ported and raise.
+give the same `ReadBatch`. `apply_original_quality_scores` (OQ),
+`parse_methylation` (MM/ML, `io/methylation.py`) and `parse_ultima_tags`
+(tp/t0) decode the aux blobs on demand, as the JAX package's do.
 
 ReadBatch layout (N reads):
   name:            list[str]              read names
@@ -732,19 +733,88 @@ class BamReader:
                     batch.hp[i] = int(tags["HP"])
 
     def apply_original_quality_scores(self, batch: ReadBatch) -> int:
-        raise NotImplementedError(
-            "use_original_quality_scores (the OQ aux tag) is not ported; "
-            "ROADMAP.md Queue 1 item 3 (the remaining read-side options)")
+        """Replace base qualities with the OQ aux tag where present
+        (--use_original_quality_scores; nucleus sam_reader.cc OQ
+        substitution). Returns the number of reads rewritten."""
+        wanted = frozenset(["OQ"])
+        n_applied = 0
+        so = batch.seq_offsets
+        for i, blob in enumerate(batch.aux):
+            if not blob:
+                continue
+            tags = parse_aux(blob, wanted)
+            oq = tags.get("OQ")
+            if not isinstance(oq, str):
+                continue
+            quals = np.frombuffer(
+                oq.encode("ascii"), np.uint8
+            ).astype(np.uint8) - 33
+            if len(quals) == so[i + 1] - so[i]:
+                batch.qual[so[i] : so[i + 1]] = quals
+                n_applied += 1
+        return n_applied
 
     def parse_methylation(self, batch: ReadBatch) -> int:
-        raise NotImplementedError(
-            "MM/ML base-modification parsing is not ported; ROADMAP.md "
-            "Queue 1 item 3 (the remaining read-side options)")
+        """Fill batch.meth (5mC) and batch.meth6ma (6mA) with per-base
+        modification probabilities from MM/ML aux tags (nucleus
+        sam_reader.cc base-modification parsing).
+        Returns the number of reads carrying 5mC methylation."""
+        from deepvariant_tpu_torch.io.methylation import (
+            base_modification_values,
+        )
+
+        wanted = frozenset(["MM", "Mm", "ML", "Ml"])
+        batch.meth = [None] * len(batch)
+        batch.meth6ma = [None] * len(batch)
+        n_meth = 0
+        rev = batch.is_reverse()
+        for i, blob in enumerate(batch.aux):
+            if not blob:
+                continue
+            tags = parse_aux(blob, wanted)
+            if not tags:
+                continue
+            seq = batch.seq_of(i).tobytes().decode()
+            values = base_modification_values(
+                seq, tags, bool(rev[i]), "m"
+            )
+            if values is not None:
+                batch.meth[i] = values
+                n_meth += 1
+            values_6ma = base_modification_values(
+                seq, tags, bool(rev[i]), "a"
+            )
+            if values_6ma is not None:
+                batch.meth6ma[i] = values_6ma
+        return n_meth
 
     def parse_ultima_tags(self, batch: ReadBatch) -> int:
-        raise NotImplementedError(
-            "Ultima tp/t0 flow-tag parsing is not ported; ROADMAP.md "
-            "Queue 1 item 3 (the remaining read-side options)")
+        """Fill batch.tp (int8 per base) / batch.t0 (uint8 Q-scores per
+        base) from Ultima flow aux tags, feeding the homopolymer
+        insertion/deletion quality channels
+        (homopolymer_indel_quality_channel.cc GetTPValues,
+        inter_homopolymer_insertion_quality_channel.cc GetT0Values).
+        Returns the number of reads carrying a tp tag."""
+        wanted = frozenset(["tp", "t0"])
+        batch.tp = [None] * len(batch)
+        batch.t0 = [None] * len(batch)
+        n_tp = 0
+        for i, blob in enumerate(batch.aux):
+            if not blob:
+                continue
+            tags = parse_aux(blob, wanted)
+            if "tp" in tags:
+                tp = np.asarray(tags["tp"], np.int8)
+                batch.tp[i] = tp
+                n_tp += 1
+            if "t0" in tags and isinstance(tags["t0"], str):
+                # ASCII-encoded phred (char - 33).
+                batch.t0[i] = (
+                    np.frombuffer(
+                        tags["t0"].encode("ascii", "replace"), np.uint8
+                    ).astype(np.int16) - 33
+                ).clip(0, 255).astype(np.uint8)
+        return n_tp
 
     # -- public API --------------------------------------------------------------
 

@@ -23,13 +23,17 @@ paints the plans and runs the CNN (calling.plan_predictor).
 `MakeExamplesOptions` has every field of the JAX package's, so options
 print and pickle alike, but an option whose code is not ported yet makes
 `refuse_unported_options` raise NotImplementedError, naming the
-ROADMAP.md item that brings it: methylation (methylation-aware phasing
-and the aux-driven channels included), the small model, training mode,
-the candidate sweep, read normalization and CRAM input. The realigner
-(realign/), trimmed reads, every alt-aligned pileup mode, direct read
-phasing (phasing/direct_phasing.py, with its padded region, its TSVs and
-the candidates' phase info), gVCF records, and the proposed, population
-and exclude VCFs run, on the host like the rest of this module.
+ROADMAP.md item that brings it: the small model, training mode and CRAM
+input. The realigner (realign/), trimmed reads, every alt-aligned pileup
+mode, direct read phasing (phasing/direct_phasing.py, with its padded
+region, its TSVs and the candidates' phase info), gVCF records, the
+proposed, population and exclude VCFs, and the read-side options run, on
+the host like the rest of this module: read normalization
+(normalize.py), original qualities (OQ), the aux-driven channels (MM/ML
+methylation and 6mA, Ultima's tp/t0), methylation calling (MF/MD and the
+'.'-alt methylated reference sites), methylation-aware phasing (MI,
+phasing/methylation_aware_phasing.py) and the candidate sweep
+(candidate_sweep_runner, partition_by_candidates).
 """
 
 from __future__ import annotations
@@ -39,15 +43,21 @@ import json
 import logging
 import os
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from deepvariant_tpu_torch.core.ranges import RangeSet
 from deepvariant_tpu_torch.core.sharded_files import maybe_sharded_output_path
-from deepvariant_tpu_torch.core.types import ContigInfo, Range, Variant
+from deepvariant_tpu_torch.core.types import (
+    ContigInfo,
+    Range,
+    Variant,
+    VariantCall,
+)
 from deepvariant_tpu_torch.io import examples as example_codec
 from deepvariant_tpu_torch.io.bam import (
+    FLAG_REVERSE,
     BamReader,
     ReadBatch,
     ReadRequirements,
@@ -60,6 +70,9 @@ from deepvariant_tpu_torch.make_examples.allele_counter import (
 )
 from deepvariant_tpu_torch.make_examples.examples_builder import ExamplesBuilder
 from deepvariant_tpu_torch.make_examples import pileup
+from deepvariant_tpu_torch.make_examples.normalize import (
+    normalize_batch_cigars,
+)
 from deepvariant_tpu_torch.make_examples.pileup import PileupOptions
 from deepvariant_tpu_torch.make_examples.variant_caller import (
     DeepVariantCall,
@@ -70,6 +83,10 @@ from deepvariant_tpu_torch.phasing.direct_phasing import (
     DirectPhasing,
     DirectPhasingOptions,
 )
+from deepvariant_tpu_torch.phasing.methylation_aware_phasing import (
+    extract_methylated_ref_sites,
+    perform_methylation_aware_phasing,
+)
 from deepvariant_tpu_torch.realign.config import RealignerOptions
 from deepvariant_tpu_torch.realign.realigner import Realigner
 from deepvariant_tpu_torch.utils.resources import ResourceMonitor
@@ -78,6 +95,13 @@ from deepvariant_tpu_torch.utils.resources import ResourceMonitor
 DEFAULT_PARTITION_SIZE = 1000
 DEFAULT_MAX_READS_PER_PARTITION = 1500
 DEFAULT_RANDOM_SEED = 2101079370
+# Candidate-sweep constants (make_examples_core.py:125,134,874).
+END_OF_REGION = -1
+# Partitions within a shard's sweep output are separated by this
+# (make_examples_core.py:127-129).
+END_OF_PARTITION = -2
+MAX_PARTITION_LEN = 1000000
+DEFAULT_CANDIDATES_PER_PARTITION = 200
 # Allele phase from read phases (make_examples_core.py:2636-2668).
 MIN_DIFF_READS_FOR_ALLELE_PHASE = 3
 MAX_NUM_READS_FOR_OPPOSITE_PHASE = 2
@@ -443,6 +467,62 @@ def filter_regions_by_vcf(
     return out
 
 
+def partition_by_candidates(
+    regions: Iterator[Range] | Sequence[Range],
+    candidate_positions: Sequence[int],
+    max_size: int,
+) -> List[Range]:
+    """Candidate-balanced partitioning (make_examples_core.py:714-797):
+    each partition holds at most `max_size` candidates and at most
+    MAX_PARTITION_LEN bp; per-region candidate runs end with the
+    END_OF_REGION sentinel."""
+    if max_size <= 0:
+        raise ValueError(f"partition capacity must be positive, got {max_size}")
+
+    positions = np.asarray(candidate_positions, dtype=np.int64)
+    sentinels = np.flatnonzero(positions == END_OF_REGION)
+    regions = list(regions)
+    if len(sentinels) < len(regions):
+        raise ValueError(
+            f"candidate sweep stream is truncated: {len(sentinels)} region "
+            f"terminators for {len(regions)} regions"
+        )
+
+    out: List[Range] = []
+
+    def emit(refname: str, lo: int, hi: int) -> None:
+        # Every emitted window is additionally capped at MAX_PARTITION_LEN bp.
+        for chunk in range(lo, hi, MAX_PARTITION_LEN):
+            out.append(Range(refname, chunk, min(hi, chunk + MAX_PARTITION_LEN)))
+
+    run_start = 0
+    for region, s_idx in zip(regions, sentinels):
+        run = positions[run_start:s_idx]
+        run_start = s_idx + 1
+        if run.size and not (
+            (run >= region.start) & (run < region.end)
+        ).all():
+            raise ValueError(
+                f"sweep positions fall outside their region {region}: the "
+                "sweep output does not correspond to these regions"
+            )
+        win_lo = win_hi = region.start
+        count = 0
+        for pos in run.tolist():
+            if count == max_size or win_hi - win_lo >= MAX_PARTITION_LEN:
+                emit(region.reference_name, win_lo, win_hi)
+                # The window that triggered the flush is closed; the fresh
+                # window opens at its end with a one-base seed, and this
+                # candidate is absorbed uncounted (wire-format compatible
+                # with the sweep goldens).
+                win_lo, win_hi, count = win_hi, win_hi + 1, 0
+            else:
+                win_hi = pos + 1
+                count += 1
+        emit(region.reference_name, win_lo, region.end)
+    return out
+
+
 def reservoir_sample_indices(
     n: int, k: int, rng: np.random.RandomState
 ) -> np.ndarray:
@@ -465,7 +545,6 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
     does not have yet. Nothing is accepted and then ignored: a run either
     does what its options say or does not start."""
     o = options
-    p = o.pileup_options
 
     def refuse(what: str, item: str, queue: str = _QUEUE) -> None:
         raise NotImplementedError(
@@ -474,22 +553,8 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
     if o.mode == "training":
         refuse("training mode (labelers, truth variants)",
                "training mode and the labelers")
-    if o.mode == "candidate_sweep":
-        refuse("candidate sweep mode", "the candidate sweep")
     if o.reads_filename.endswith(".cram"):
         refuse("CRAM input", "CRAM reading")
-    if o.enable_methylation_calling or \
-            o.enable_methylation_aware_phasing:
-        refuse("methylation calling and methylation-aware phasing",
-               "methylation")
-    if set(p.channels) & pileup.AUX_CHANNELS or (
-            o.parse_sam_aux_fields
-            and set(o.aux_fields_to_keep or []) & {"MM", "ML"}):
-        refuse("methylation and flow-tag aux parsing (MM/ML, tp/t0)",
-               "methylation")
-    if o.use_original_quality_scores:
-        refuse("use_original_quality_scores (the OQ aux tag)",
-               "the remaining read-side options")
     if o.call_small_model_examples or o.write_small_model_examples or \
             o.trained_small_model_path or o.small_model_cvo_filename or \
             o.small_model_examples_filename:
@@ -500,8 +565,6 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
         refuse("training inputs (truth variants, confident regions, "
                "class downsampling, de novo regions)",
                "training mode and the labelers")
-    if o.normalize_reads:
-        refuse("normalize_reads", "read normalization")
 
 
 @dataclasses.dataclass
@@ -646,6 +709,11 @@ class RegionProcessor:
     def region_reads(self, region: Range) -> ReadBatch:
         """Query + reservoir downsample (:2408-2449)."""
         batch = self.bam_reader.query(region)
+        if self.options.use_original_quality_scores:
+            self.bam_reader.apply_original_quality_scores(batch)
+        # Channel-driven aux decoding: only pay for MM/ML or Ultima
+        # flow-tag parsing when a configured channel consumes them.
+        chans = set(self.options.pileup_options.channels)
         keep = set(self.options.aux_fields_to_keep or [])
         if self.options.parse_sam_aux_fields:
             # Eager aux parsing (--parse_sam_aux_fields): decode the
@@ -657,6 +725,15 @@ class RegionProcessor:
             # the input HP tags, so HP is parsed even without
             # --parse_sam_aux_fields (make_examples_core.py:309-313).
             self.bam_reader.parse_hp_tags(batch)
+        if (chans & {pileup.CH_BASE_METHYLATION, pileup.CH_BASE_6MA}
+                or self.options.enable_methylation_calling
+                or (self.options.parse_sam_aux_fields
+                    and keep & {"MM", "ML"})):
+            self.bam_reader.parse_methylation(batch)
+        if chans & {pileup.CH_HOMOPOLYMER_INSERTION_QUALITY,
+                    pileup.CH_HOMOPOLYMER_DELETION_QUALITY,
+                    pileup.CH_INTER_HOMOPOLYMER_INSERTION_QUALITY}:
+            self.bam_reader.parse_ultima_tags(batch)
         n = len(batch)
         if self.options.max_reads_per_partition > 0 and \
                 n > self.options.max_reads_per_partition:
@@ -731,6 +808,11 @@ class RegionProcessor:
         to the unpadded partition (candidates stay padded and are
         filtered after phasing; make_examples_core.py:2877,2961-2963)."""
         counter = self._allele_counter(region)
+        if self.options.normalize_reads and len(batch):
+            # Rewrites the batch's CIGARs and starts in place, before
+            # counting: the planners and the painter see the
+            # normalized reads too (make_examples_core.py:2903-2936).
+            normalize_batch_cigars(batch, counter.ref, region.start)
         counter.add_batch(batch)
         candidates = self.caller.calls_in_region(counter)
         gvcfs = list(self.caller.make_gvcfs(
@@ -738,6 +820,139 @@ class RegionProcessor:
             left_padding=left_padding, right_padding=right_padding,
         )) if include_gvcfs else []
         return candidates, gvcfs, counter
+
+    def _add_methylation_stats(self, batch, candidates) -> None:
+        """FORMAT MF (methylation fraction) + MD (methylated depth)
+        per allele, ref first (ComputeMethylationStats,
+        variant_calling_multisample.cc:1499-1560). A read is
+        methylated at the site when its 5mC probability there clears
+        methylation_calling_threshold; reverse-strand reads carry the
+        CpG mark one base right (on the G)."""
+        if not getattr(batch, "meth", None):
+            return
+        threshold = self.options.methylation_calling_threshold * 255.0
+
+        def is_methylated(read_idx: int, pos: int) -> bool:
+            meth = batch.meth[read_idx]
+            if meth is None:
+                return False
+            if batch.flag[read_idx] & FLAG_REVERSE:
+                pos += 1
+            off = _ref_to_read_offset(batch, read_idx, pos)
+            return off is not None and float(meth[off]) >= threshold
+
+        for candidate in candidates:
+            variant = candidate.variant
+            mf, md = [], []
+            groups = [list(candidate.ref_support)] + [
+                list(candidate.allele_support.get(alt, []))
+                for alt in variant.alternate_bases
+            ]
+            for ids in groups:
+                n_meth = sum(
+                    1 for rid in ids if is_methylated(rid, variant.start)
+                )
+                mf.append(n_meth / len(ids) if ids else 0.0)
+                md.append(n_meth)
+            if any(f > 0 for f in mf):
+                if not variant.calls:
+                    variant.calls.append(VariantCall())
+                variant.calls[0].info["MF"] = mf
+                variant.calls[0].info["MD"] = md
+
+    # Contigs excluded from methylated-reference-site emission
+    # (IsExcludedMethylationContig; X/Y have allosome-specific
+    # methylation patterns, variant_calling_multisample.cc:981-1035).
+    _METHYLATION_EXCLUDED_CONTIGS = frozenset(
+        {"chrX", "chrY", "X", "Y"}
+    )
+
+    def _methylated_ref_site_candidates(
+        self, batch, region: Range, candidates
+    ) -> List["DeepVariantCall"]:
+        """Reference-only sites carrying 5mC become '.'-alt candidates
+        with MF/MD stats (CallVariant has_methylation path,
+        variant_calling_multisample.cc:1019-1118; kNoAltAllele '.',
+        GT {-1,-1})."""
+        if region.reference_name in self._METHYLATION_EXCLUDED_CONTIGS:
+            return []
+        if not getattr(batch, "meth", None) or not any(
+            m is not None for m in batch.meth
+        ):
+            if self.bam_reader is not None:
+                self.bam_reader.parse_methylation(batch)
+            if not getattr(batch, "meth", None):
+                return []
+        threshold = self.options.methylation_calling_threshold
+        sites = extract_methylated_ref_sites(
+            batch, region.start, region.end,
+            threshold=threshold,
+        )
+        variant_positions = {c.variant.start for c in candidates}
+        out = []
+        for site in sites:
+            if site.position in variant_positions:
+                continue  # not a reference-only site
+            ref_base = self.ref_reader.query(Range(
+                region.reference_name, site.position,
+                site.position + 1,
+            ))
+            if ref_base not in ("A", "C", "G", "T"):
+                continue
+            n_meth = sum(
+                1 for m in site.levels.values()
+                if m >= threshold
+            )
+            ids = sorted(site.levels)
+            variant = Variant(
+                reference_name=region.reference_name,
+                start=site.position,
+                end=site.position + 1,
+                reference_bases=ref_base,
+                alternate_bases=["."],
+                calls=[VariantCall(
+                    call_set_name=self.options.sample_name,
+                    genotype=[-1, -1],
+                )],
+            )
+            variant.calls[0].info["MF"] = [n_meth / len(ids)] if ids \
+                else [0.0]
+            variant.calls[0].info["MD"] = [n_meth]
+            out.append(DeepVariantCall(
+                variant=variant,
+                allele_support={},
+                ref_support=ids,
+            ))
+        return out
+
+    def _phase_by_methylation(self, batch, region: Range, candidates,
+                              phases: List[int]) -> List[int]:
+        """Methylation-aware phasing after DirectPhasing: returns
+        `phases` completed from the methylated sites and sets MI, the
+        Wilcoxon p-value, on the candidates at sites where the test ran
+        (set_mi, make_examples_core.py:3078-3084)."""
+        if not batch.meth:
+            self.bam_reader.parse_methylation(batch)
+        sites = []
+        if region.reference_name not in set(
+            self.options.exclude_contigs_for_methylation_phasing
+        ):
+            sites = extract_methylated_ref_sites(
+                batch, region.start, region.end
+            )
+        if not sites:
+            return phases
+        phases, p_values = perform_methylation_aware_phasing(
+            len(batch), phases, sites
+        )
+        p_by_pos = {
+            s.position: p for s, p in zip(sites, p_values) if p > 0
+        }
+        for candidate in candidates:
+            p = p_by_pos.get(candidate.variant.start)
+            if p is not None and candidate.variant.calls:
+                candidate.variant.calls[0].info["MI"] = [p]
+        return phases
 
     def _add_phasing_to_candidates(
         self, dp, candidates, phases, region: Range
@@ -794,6 +1009,13 @@ class RegionProcessor:
                 variant.info["PS_CONTIG"] = [phase_contig]
                 variant.info["FIRST_VARIANT_IN_BLOCK"] = [False]
         return n_phased
+
+    def find_candidate_positions(self, region: Range) -> List[int]:
+        """Candidate start positions in region (CANDIDATE_SWEEP pass;
+        make_examples_core.py:2117)."""
+        batch = self.region_reads(region)
+        candidates, _, _ = self.candidates_in_region(region, batch, False)
+        return [c.variant.start for c in candidates]
 
     # -- main ---------------------------------------------------------------
 
@@ -903,6 +1125,15 @@ class RegionProcessor:
                 self.ref_reader,
             ))
 
+        if self.options.enable_methylation_calling and candidates:
+            self._add_methylation_stats(batch, candidates)
+        methylated_ref_sites: List[DeepVariantCall] = []
+        if (self.options.enable_methylation_calling
+                or self.options.enable_methylation_aware_phasing):
+            methylated_ref_sites = self._methylated_ref_site_candidates(
+                batch, region, candidates
+            )
+
         # --phase_max_candidates region gate: skip phasing when the
         # region has absurdly many candidates
         # (make_examples_core.py:3021-3029).
@@ -917,6 +1148,9 @@ class RegionProcessor:
                 min_alleles_to_phase=self.options.min_alleles_to_phase,
             ))
             phases = dp.phase_reads(candidates, len(batch))
+            if self.options.enable_methylation_aware_phasing:
+                phases = self._phase_by_methylation(
+                    batch, region, candidates, phases)
             if self.options.output_phasing_error_stats_filename:
                 # Compare assigned phases against the input HP tags
                 # (make_examples_core.py:3083-3148). batch.hp still
@@ -1001,9 +1235,12 @@ class RegionProcessor:
                 ):
                     examples.append(built.encoded)
         runtimes["make pileup images"] = time.perf_counter() - t0
-        candidates.sort(key=lambda c: c.variant.start)
-        return RegionOutputs(region, candidates, examples, gvcfs, runtimes,
-                             plans=plans)
+        # The '.'-alt methylated reference sites go to the candidates
+        # TFRecord, not to examples (make_examples_core.py:1481-1482).
+        all_candidates = candidates + methylated_ref_sites
+        all_candidates.sort(key=lambda c: c.variant.start)
+        return RegionOutputs(region, all_candidates, examples, gvcfs,
+                             runtimes, plans=plans)
 
 
 class OutputsWriter:
@@ -1121,6 +1358,112 @@ def extract_sample_name_from_bam_header(header) -> str:
         if name:
             return name
     return DEFAULT_SAMPLE_NAME
+
+
+def candidate_sweep_runner(
+    options: MakeExamplesOptions, output_path: str
+) -> int:
+    """CANDIDATE_SWEEP mode: write int32 candidate positions (with an
+    END_OF_REGION sentinel per calling region) for later
+    candidate-balanced sharding (make_examples_core.py:3592-3605)."""
+    processor = RegionProcessor(options)
+    contigs = processor.ref_reader.contigs
+    calling_regions = calling_regions_from_options(options, contigs)
+    regions = regions_to_process(
+        contigs,
+        options.partition_size,
+        calling_regions,
+        options.task_id if options.num_shards else None,
+        options.num_shards if options.num_shards else None,
+    )
+    positions: List[int] = []
+    n = 0
+    calling_ends = {
+        (r.reference_name, r.end) for r in (calling_regions or [])
+    } if calling_regions else {
+        (c.name, c.n_bases) for c in contigs
+    }
+    for region in regions:
+        found = processor.find_candidate_positions(region)
+        positions.extend(found)
+        # End-of-partition separator, then end-of-region when this
+        # partition closes a calling region
+        # (make_examples_core.py:3592-3605 writer flow).
+        positions.append(END_OF_PARTITION)
+        if (region.reference_name, region.end) in calling_ends:
+            positions.append(END_OF_REGION)
+        n += len(found)
+    np.asarray(positions, np.int32).tofile(output_path)
+    return n
+
+
+def merge_candidate_positions(
+    position_arrays: Sequence[np.ndarray],
+) -> np.ndarray:
+    """Round-robin merge of per-shard sweep outputs
+    (merge_ranges_from_files_sequential, make_examples_core.py:3247):
+    shards wrote partitions in round-robin region order, separated by
+    END_OF_PARTITION; the merged stream keeps only positions +
+    END_OF_REGION markers, globally sorted per contig."""
+    out: List[int] = []
+    idx = [0] * len(position_arrays)
+    if not position_arrays:
+        return np.empty(0, np.int32)
+    live = sum(1 for a in position_arrays if len(a))
+    shard = 0
+    while live > 0:
+        arr = position_arrays[shard]
+        i = idx[shard]
+        while i < len(arr):
+            val = int(arr[i])
+            if val == END_OF_PARTITION:
+                i += 1
+                if i < len(arr) and int(arr[i]) == END_OF_REGION:
+                    out.append(END_OF_REGION)
+                    i += 1
+                break
+            out.append(val)
+            i += 1
+        idx[shard] = i
+        if i >= len(arr):
+            live -= 1
+        # advance to next shard that still has data
+        for step in range(1, len(position_arrays) + 1):
+            nxt = (shard + step) % len(position_arrays)
+            if idx[nxt] < len(position_arrays[nxt]):
+                shard = nxt
+                break
+        else:
+            break
+    return np.asarray(out, np.int32)
+
+
+def load_candidate_positions(paths: Sequence[str]) -> np.ndarray:
+    """Load + merge per-shard sweep outputs
+    (make_examples_core.py:3322-3334)."""
+    arrays = [np.fromfile(p, np.int32) for p in paths]
+    return merge_candidate_positions(arrays)
+
+
+def _ref_to_read_offset(batch, read_idx: int, ref_pos: int):
+    """Read offset aligned to ref_pos via the CIGAR (M/=/X only)."""
+    co = batch.cigar_offsets
+    ops = batch.cigar_ops[co[read_idx] : co[read_idx + 1]]
+    lens = batch.cigar_lens[co[read_idx] : co[read_idx + 1]]
+    ref_i = int(batch.pos[read_idx])
+    read_i = 0
+    for op, op_len in zip(ops, lens):
+        op_len = int(op_len)
+        if op in (1, 8, 9):  # M/=/X
+            if ref_i <= ref_pos < ref_i + op_len:
+                return read_i + (ref_pos - ref_i)
+            ref_i += op_len
+            read_i += op_len
+        elif op in (2, 5):  # I/S
+            read_i += op_len
+        elif op in (3, 4):  # D/N
+            ref_i += op_len
+    return None
 
 
 def make_examples_runner(

@@ -6,12 +6,15 @@ encoder (the reference's pileup_image_native.cc BuildPileupForOneSample
 and the CIGAR walk of pileup_channel_lib.cc CalculateBaseLevelData
 :170-260), in numpy and Python over the columnar ReadBatch: the options
 and channel constants, `build_pileup` and its per-read painter
-`encode_read_row` for every channel that needs no aux tag, and the
-helpers the device planners (`pileup_device`) share with it. Each read
+`encode_read_row` for every channel, the aux-driven ones included
+(methylation and 6mA from MM/ML, the homopolymer and inter-homopolymer
+quality channels from Ultima's tp/t0), and the helpers the device
+planners (`pileup_device`) share with it. Each read
 is painted by `encode_read_row`, the JAX package's per-row branch; its
 dispatch to the native batch painter (`native.encode_rows`) is not
-copied. The aux-driven channels (methylation, 6mA and the flow-quality
-channels) raise NotImplementedError, naming their ROADMAP.md item.
+copied. The aux-driven channels are not in the plan form's channel set
+(`pileup_device.DEVICE_CHANNELS`), as in the JAX package, so a channel
+list that holds one is painted here.
 
 Numerics contract (channels/channel.h:78 kMaxPixelValueAsFloat = 254):
 - read_base: A=40+70*3=250, G=40+70*2=180, T=30+70*1=100, C=30+70*0=30, else 0
@@ -113,18 +116,12 @@ CHANNEL_NAME_TO_ENUM = {
         CH_INTER_HOMOPOLYMER_INSERTION_QUALITY,
 }
 
-#: Channels painted from aux tags (MM/ML, tp/t0), which the port does not
-#: parse yet.
+#: Channels painted from aux tags (MM/ML, tp/t0): the reads' tags are
+#: decoded only when a channel list holds one (`core.region_reads`).
 AUX_CHANNELS = frozenset({
     CH_BASE_METHYLATION, CH_BASE_6MA, CH_HOMOPOLYMER_INSERTION_QUALITY,
     CH_HOMOPOLYMER_DELETION_QUALITY, CH_INTER_HOMOPOLYMER_INSERTION_QUALITY,
 })
-
-
-def _refuse_aux_channel(ch: int) -> None:
-    raise NotImplementedError(
-        f"pileup channel {ch} is painted from aux tags (MM/ML, tp/t0), "
-        "which are not ported yet; ROADMAP.md Queue 1 item 3 (methylation)")
 
 
 # Per-read "Opt Channel" scalar/vector values
@@ -163,6 +160,49 @@ def _scale_int(value: float, max_val: float) -> int:
 
 _MAX_Q_SCORE = 93  # homopolymer_indel_quality_channel.h:65 kMaxQScore
 
+
+def _base_quality_color(q: int) -> int:
+    """channel_utils.cc:42 BaseQualityColor: 254 * q / 93."""
+    return int(MAX_PIXEL_FLOAT * q / float(_MAX_Q_SCORE))
+
+
+def _hmer_indel_qualities(
+    seq: np.ndarray, qual: np.ndarray, tp, is_deletion: bool
+) -> np.ndarray:
+    """Per-base phred color for hmer insertion/deletion risk
+    (homopolymer_indel_quality_channel.cc HomoPolymerInDelQuality).
+
+    tp[i] sign marks the error direction the encoded quality refers
+    to (<0 deletion, >0 insertion, 0 none); per homopolymer, error
+    probs in the matching direction are summed and re-phred-scaled.
+    No/mismatched tp tag -> flat max-quality color."""
+    n = len(seq)
+    out = np.full(n, _base_quality_color(_MAX_Q_SCORE), np.uint8)
+    if tp is None or len(tp) != n or n == 0:
+        return out
+    runs = _homopolymer_weights(seq)
+    i = 0
+    while i < n:
+        hmer_len = int(runs[i])
+        err = 0.0
+        for j in range(hmer_len):
+            t = int(tp[i + j])
+            if t == 0:
+                continue
+            if (t < 0) == is_deletion:
+                err += 10.0 ** (int(qual[i + j]) / -10.0)
+        q = _MAX_Q_SCORE if err == 0 else int(
+            -10.0 * math.log10(err)
+        )
+        # Summed error probabilities above 1 (low qualities in a long
+        # run) give a negative phred: held at 0, where the JAX package's
+        # uint8 store raises OverflowError (ROADMAP.md Queue 3).
+        q = min(max(q, 0), _MAX_Q_SCORE)
+        out[i : i + hmer_len] = _base_quality_color(q)
+        i += hmer_len
+    return out
+
+# Channels whose pixel value is constant across a read's painted
 # Channels whose pixel value is constant across a read's painted
 # columns; encode_read_row paints _const_color_one at every event.
 PER_READ_CONST_CHANNELS = frozenset({
@@ -331,9 +371,11 @@ class PileupEncoder:
                 row[:, ci] = (
                     MAX_PIXEL_FLOAT * weights / 30.0
                 ).astype(np.uint8)
-            elif ch in AUX_CHANNELS:
-                _refuse_aux_channel(ch)
-            elif ch == CH_ALLELE_SAMPLE_PROBABILITY:
+            elif ch in (CH_BASE_METHYLATION, CH_BASE_6MA,
+                        CH_ALLELE_SAMPLE_PROBABILITY,
+                        CH_HOMOPOLYMER_INSERTION_QUALITY,
+                        CH_HOMOPOLYMER_DELETION_QUALITY,
+                        CH_INTER_HOMOPOLYMER_INSERTION_QUALITY):
                 row[:, ci] = 0  # ref rows 0 (channels/*.cc FillRefBase)
             elif ch == CH_READ_SUPPORTS_VARIANT_FUZZY:
                 # FillRefBase = SupportsAltColor(0)
@@ -587,8 +629,52 @@ class PileupEncoder:
                 row[cols, ci] = (
                     MAX_PIXEL_FLOAT * weights[rpos] / 30.0
                 ).astype(np.uint8)
-            elif ch in AUX_CHANNELS:
-                _refuse_aux_channel(ch)
+            elif ch == CH_BASE_METHYLATION:
+                meth = batch.meth[read_idx] if batch.meth else None
+                if meth is not None:
+                    # 5mC prob 0-255 scaled to 0-254
+                    # (base_methylation_channel.cc ScaleColorVector).
+                    row[cols, ci] = (
+                        MAX_PIXEL_FLOAT
+                        * meth[rpos].astype(np.float32) / 255.0
+                    ).astype(np.uint8)
+            elif ch == CH_BASE_6MA:
+                m6a = (batch.meth6ma[read_idx]
+                       if batch.meth6ma else None)
+                if m6a is not None:
+                    # 6mA prob 0-255 scaled to 0-254
+                    # (base_6ma_channel.cc ScaleColorVector).
+                    row[cols, ci] = (
+                        MAX_PIXEL_FLOAT
+                        * m6a[rpos].astype(np.float32) / 255.0
+                    ).astype(np.uint8)
+            elif ch in (CH_HOMOPOLYMER_INSERTION_QUALITY,
+                        CH_HOMOPOLYMER_DELETION_QUALITY):
+                so = batch.seq_offsets
+                full_seq = batch.seq[so[read_idx]:so[read_idx + 1]]
+                full_qual = batch.qual[so[read_idx]:so[read_idx + 1]]
+                tp = batch.tp[read_idx] if batch.tp else None
+                colors = _hmer_indel_qualities(
+                    full_seq, full_qual, tp,
+                    is_deletion=(
+                        ch == CH_HOMOPOLYMER_DELETION_QUALITY
+                    ),
+                )
+                row[cols, ci] = colors[rpos]
+            elif ch == CH_INTER_HOMOPOLYMER_INSERTION_QUALITY:
+                t0 = batch.t0[read_idx] if batch.t0 else None
+                if t0 is not None:
+                    # t0 Q-scores -> BaseQualityColor per base
+                    # (inter_homopolymer_insertion_quality_channel.cc
+                    # GetT0QualityValues).
+                    colors = (
+                        MAX_PIXEL_FLOAT
+                        * np.minimum(
+                            t0.astype(np.float32), _MAX_Q_SCORE
+                        ) / float(_MAX_Q_SCORE)
+                    ).astype(np.uint8)
+                    valid = rpos < len(colors)
+                    row[cols[valid], ci] = colors[rpos[valid]]
         return row
 
     def _const_color_one(

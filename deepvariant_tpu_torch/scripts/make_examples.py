@@ -5,9 +5,14 @@ flags (the reference's make_examples_options.py surface), funneled into
 MakeExamplesOptions, with `check_options_are_valid` cross-checks, the
 same exit codes and messages, and the serialized options recorded in
 the run_info sidecar. Stage 1 runs on the host and needs no card: the
-pileups are painted by `pileup.PileupEncoder.build_pileup`. Options
-whose code the port does not have yet (training mode, the candidate
-sweep, CRAM, methylation, the small model, read normalization) raise
+pileups are painted by `pileup.PileupEncoder.build_pileup`. The
+read-side options run as in the JAX package (`--normalize_reads`,
+`--use_original_quality_scores`, `--enable_methylation_calling`,
+`--enable_methylation_aware_phasing`, `--parse_sam_aux_fields` with
+MM/ML, the aux-driven channels of `--channel_list`), and so does
+`--mode candidate_sweep`, which, as there, runs the calling runner (the
+positions file is `core.candidate_sweep_runner`'s). Options whose code
+the port does not have yet (training mode, CRAM, the small model) raise
 NotImplementedError through `refuse_unported_options`, naming their
 ROADMAP.md item. `--stream_examples`/`--shm_*` are refused as in the
 JAX package (the fused stream replaces them), and `--hts_block_size` is

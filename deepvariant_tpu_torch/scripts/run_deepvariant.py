@@ -1,8 +1,11 @@
 """One-step pipeline driver (reference scripts/run_deepvariant.py:863).
 
 The port's copy of `deepvariant_tpu.scripts.run_deepvariant`, with the
-same flags plus `--device` (default `cuda`; a missing card raises,
-`--device cpu` runs stage 2 and the stream's CNN on the CPU in float32).
+same flags plus two: `--make_examples_extra_args` (the reference's flag,
+a comma-separated `flag=value` list appended to every make_examples
+shard's flags, as the JAX package's run_oracle_inference takes it) and
+`--device` (default `cuda`; a missing card raises, `--device cpu` runs
+stage 2 and the stream's CNN on the CPU in float32).
 Runs the three stages in sequence:
   make_examples (N shard processes, replacing GNU parallel,
   run_deepvariant.py:457-462; spawned, host only, so none touches CUDA)
@@ -29,6 +32,7 @@ from __future__ import annotations
 import argparse
 import multiprocessing
 import os
+import re
 import sys
 import time
 
@@ -41,6 +45,32 @@ MODEL_TYPES = (
     "MASSEQ",
     "RNASEQ",
 )
+
+
+def split_extra_args(input_string: str) -> list:
+    """Split on commas except inside quoted values
+    (run_oracle_inference.py:213-216)."""
+    pattern = r"[^,]+=[\"'][^\"']*[\"']|[^,]+"
+    return re.findall(pattern, input_string)
+
+
+def extra_args_to_argv(extra_args: str) -> list:
+    """A comma-separated flag_name=flag_value list as make_examples argv
+    fragments; true and false map to --flag and --no-flag."""
+    argv = []
+    if not extra_args:
+        return argv
+    for item in split_extra_args(extra_args):
+        name, value = item.split("=", 1)
+        name = name.strip().lstrip("-")
+        value = value.strip().strip("\"'")
+        if value.lower() == "true":
+            argv.append(f"--{name}")
+        elif value.lower() == "false":
+            argv.append(f"--no-{name}")
+        else:
+            argv += [f"--{name}", value]
+    return argv
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,6 +115,10 @@ def build_parser() -> argparse.ArgumentParser:
              "the card from compact candidate plans (the CUDA paint "
              "kernel), 'host' paints images on the workers; 'auto' "
              "picks device whenever the preset's channels allow it")
+    p.add_argument("--make_examples_extra_args", default=None,
+                   help="comma-separated flag=value list for every "
+                        "make_examples shard, e.g. "
+                        "output_local_read_phasing=dir/phase@2.tsv")
     p.add_argument("--device", default="cuda",
                    help="where stage 2 and the stream's CNN run: cuda "
                         "(default; fails without a card) or cpu")
@@ -270,6 +304,7 @@ def main(argv=None) -> int:
         if args.trained_small_model_path:
             me_argv += ["--trained_small_model_path",
                         args.trained_small_model_path]
+    me_argv += extra_args_to_argv(args.make_examples_extra_args)
     if args.stream:
         return _run_stream(args, me_argv, n, t_start, device)
     t0 = time.time()

@@ -19,6 +19,13 @@ readers, the allele counter and the planners:
 few kb with indel and substitution errors in their alignments, for the
 PacBio and ONT presets.
 
+`add_read_options` and `add_methylation` put the aux tags of the
+read-side options on a sample's reads, each from its own seed, so a
+sample made without them keeps its bytes: OQ (some of the wrong
+length), Ultima's tp and t0, and indels written right-shifted in
+homopolymers for `--normalize_reads`; MM/ML 5mC at CpGs, with
+haplotype-specific levels at a share of them, and some 6mA.
+
 `write_vcf_inputs` writes the VCF inputs of stage 1 from a sample's
 planted variants: a population VCF with an AF per alt (for the
 allele_frequency channel), a VCF of proposed variants (for the
@@ -376,13 +383,18 @@ def synthetic_longread_sample(
     variant_spacing: int = 300,
     hp_tags: bool = True,
     sample_name: str = "synthetic_longread",
+    cpg_snps: bool = False,
 ) -> dict:
     """The long-read form of `synthetic_sample`, in the same layout:
     single-end reads of a few kb from either strand over the same kind of
     reference and planted variants, with an error mix of indels (mostly
     in homopolymers) and substitutions, long soft clips, a few
     supplementary records and low-mapq reads, and, with `hp_tags`, an HP
-    tag naming the read's true haplotype on most reads."""
+    tag naming the read's true haplotype on most reads. The sample's
+    `read_haps` holds every read's true haplotype (0 or 1). With
+    `cpg_snps` every single-alt SNP becomes a C>T at a CpG (the
+    reference there is rewritten to CG), the sites where methylation
+    and a heterozygous variant meet; it draws nothing from the seed."""
     rng = np.random.RandomState(seed)
     reference = {}
     variants = {}
@@ -392,6 +404,11 @@ def synthetic_longread_sample(
         ref = _reference(rng, length)
         reference[name] = ref
         planted = _plant(rng, ref, variant_spacing)
+        if cpg_snps:
+            for v in planted:
+                if len(v["alleles"]) == 1 and v["alleles"][0][0] == "snp":
+                    ref[v["pos"]:v["pos"] + 2] = (ord("C"), ord("G"))
+                    v["alleles"] = [("snp", "T")]
         variants[name] = planted
         by_pos = {v["pos"]: v for v in planted}
         n_reads = max(1, depth * length // mean_read_length)
@@ -430,11 +447,203 @@ def synthetic_longread_sample(
             rows.append(dict(
                 name=f"zmw{serial:06d}/ccs", flag=flag, ref_id=ref_id,
                 pos=pos, mapq=mapq, seq=seq, qual=qual, cigar=cigar,
-                mate_ref_id=-1, mate_pos=-1, tlen=0, aux=aux))
+                mate_ref_id=-1, mate_pos=-1, tlen=0, aux=aux, hap=hap))
             serial += 1
+    reads = _pack_reads(rows)
     return dict(contigs=list(contig_lengths), reference=reference,
-                variants=variants, reads=_pack_reads(rows),
+                variants=variants, reads=reads,
+                read_haps=np.array([r["hap"] for r in rows], np.int8),
                 sample_name=sample_name)
+
+
+def _unpack_reads(reads: dict) -> List[dict]:
+    """The packed columns of `_pack_reads` as read rows again."""
+    so, co = reads["seq_offsets"], reads["cigar_offsets"]
+    rows = []
+    for i, name in enumerate(reads["name"]):
+        rows.append(dict(
+            name=name, flag=int(reads["flag"][i]),
+            ref_id=int(reads["ref_id"][i]), pos=int(reads["pos"][i]),
+            mapq=int(reads["mapq"][i]),
+            seq=reads["seq"][so[i]:so[i + 1]].copy(),
+            qual=reads["qual"][so[i]:so[i + 1]].copy(),
+            cigar=[[int(op), int(n)] for op, n in zip(
+                reads["cigar_ops"][co[i]:co[i + 1]],
+                reads["cigar_lens"][co[i]:co[i + 1]])],
+            mate_ref_id=int(reads["mate_ref_id"][i]),
+            mate_pos=int(reads["mate_pos"][i]),
+            tlen=int(reads["tlen"][i]), aux=reads["aux"][i]))
+    return rows
+
+
+def _aux_z(tag: bytes, text: bytes) -> bytes:
+    return tag + b"Z" + text + b"\x00"
+
+
+def _aux_b(tag: bytes, sub: bytes, values: np.ndarray) -> bytes:
+    return tag + b"B" + sub + struct.pack("<I", len(values)) + \
+        values.tobytes()
+
+
+def _shift_indel_right(rng, row: dict, ref: np.ndarray) -> bool:
+    """Rewrite one all-match read to carry a one-base deletion or
+    insertion in a homopolymer of 3+ bases, written at the run's right
+    end (where an aligner that does not left-align may put it); True if
+    the read had such a run."""
+    (op, n), = row["cigar"]
+    start = row["pos"]
+    span = ref[start:start + n]
+    runs = [i for i in range(2, n - 12)
+            if span[i] == span[i - 1] == span[i - 2] != span[i + 1]
+            and span[i] != ord("N")
+            and (row["seq"][i - 2:i + 1] == span[i]).all()]
+    if not runs:
+        return False
+    last = runs[int(rng.randint(len(runs)))]
+    if rng.rand() < 0.5:
+        # Delete the run's last base: M(last) D1 M(rest).
+        row["seq"] = np.delete(row["seq"], last)
+        row["qual"] = np.delete(row["qual"], last)
+        row["cigar"] = [[_M, last], [_D, 1], [_M, n - last - 1]]
+    else:
+        # One more copy of the run's base after its last base.
+        row["seq"] = np.insert(row["seq"], last + 1, span[last])
+        row["qual"] = np.insert(row["qual"], last + 1, row["qual"][last])
+        row["cigar"] = [[_M, last + 1], [_I, 1], [_M, n - last - 1]]
+    return True
+
+
+def add_read_options(sample: dict, seed: int, oq: bool = True,
+                     flow: bool = True, shifted_indels: int = 0) -> dict:
+    """The sample with the short-read options' aux tags, drawn from
+    `seed` only: with `oq` an OQ tag on a third of the reads, differing
+    from QUAL, a tenth of them one base short or long (those keep their
+    QUAL); with `flow` Ultima's tp (B:c, -1/0/1 per base, a few of the
+    wrong length) and t0 (Z, phred + 33) on most reads; and
+    `shifted_indels` all-match reads rewritten to carry a one-base
+    indel at the right end of a homopolymer. Returns a new sample."""
+    rng = np.random.RandomState(seed)
+    names = [n for n, _ in sample["contigs"]]
+    rows = _unpack_reads(sample["reads"])
+    plain = [i for i, r in enumerate(rows)
+             if len(r["cigar"]) == 1 and r["cigar"][0][0] == _M]
+    rng.shuffle(plain)
+    shifted = 0
+    for i in plain:
+        if shifted == shifted_indels:
+            break
+        row = rows[i]
+        shifted += _shift_indel_right(
+            rng, row, sample["reference"][names[row["ref_id"]]])
+    for row in rows:
+        n = len(row["seq"])
+        if oq and rng.rand() < 0.33:
+            quals = np.clip(row["qual"].astype(np.int64)
+                            + rng.randint(-12, 13, n), 0, 60)
+            if rng.rand() < 0.1:
+                quals = quals[:-1] if rng.rand() < 0.5 else \
+                    np.append(quals, 30)
+            row["aux"] += _aux_z(b"OQ", (quals + 33).astype(
+                np.uint8).tobytes())
+        if flow and rng.rand() < 0.8:
+            tp = rng.choice(np.array([-1, 0, 0, 0, 0, 1], np.int8), n)
+            if rng.rand() < 0.05:
+                tp = tp[:-2]
+            row["aux"] += _aux_b(b"tp", b"c", tp.astype(np.int8))
+            t0 = rng.randint(0, 60, n) + 33
+            row["aux"] += _aux_z(b"t0", t0.astype(np.uint8).tobytes())
+    return dict(sample, reads=_pack_reads(rows))
+
+
+def _mm_item(code: bytes, positions: List[int], marked: Dict[int, int],
+             skip: bytes) -> Tuple[bytes, List[int]]:
+    """One MM item over `positions` (the read offsets of the item's base
+    in the original read's order) and its ML values: each delta counts
+    the unmarked bases skipped before a marked one."""
+    deltas, probs, skipped = [], [], 0
+    for i in positions:
+        if i in marked:
+            deltas.append(skipped)
+            probs.append(marked[i])
+            skipped = 0
+        else:
+            skipped += 1
+    text = code + skip + b"".join(b",%d" % d for d in deltas) + b";"
+    return text, probs
+
+
+def add_methylation(sample: dict, seed: int,
+                    specific_fraction: float = 0.4) -> dict:
+    """The long-read sample with MM/ML tags, drawn from `seed` only.
+    Every CpG gets a level per haplotype: at `specific_fraction` of them
+    (and at every C>T SNP of `cpg_snps`) one haplotype is methylated
+    (ML 200-250) and the other not (5-40), at half the rest both are
+    methylated, at the others neither. Forward reads carry the mark on
+    the C, reverse reads on the G of the aligned sequence, as the
+    original read's C; a few A's (T's on reverse reads) carry 6mA. Some
+    reads spell the tags Mm/Ml, some use the '?' or '.' skip modes, and
+    a tenth carry none. Returns a new sample."""
+    rng = np.random.RandomState(seed)
+    names = [n for n, _ in sample["contigs"]]
+    levels = {}
+    for name in names:
+        ref = sample["reference"][name]
+        snps = {v["pos"] for v in sample["variants"][name]
+                if v["alleles"] == [("snp", "T")]}
+        cpg = np.flatnonzero((ref[:-1] == ord("C")) & (ref[1:] == ord("G")))
+        table = {}
+        for p in cpg.tolist():
+            u = rng.rand()
+            if p in snps or u < specific_fraction:
+                high = int(rng.randint(2))
+                table[p] = (high, 1 - high)
+            elif u < specific_fraction + (1 - specific_fraction) / 2:
+                table[p] = (1, 1)
+            else:
+                table[p] = (0, 0)
+        levels[name] = table
+    rows = _unpack_reads(sample["reads"])
+    for row, hap in zip(rows, sample["read_haps"].tolist()):
+        if rng.rand() < 0.1:
+            continue
+        table = levels[names[row["ref_id"]]]
+        reverse = bool(row["flag"] & 0x10)
+        seq = row["seq"]
+        meth, m6a = {}, {}
+        ref_i, read_i = row["pos"], 0
+        for op, n in row["cigar"]:
+            if op == _M:
+                for k in range(n):
+                    site = ref_i + k - (1 if reverse else 0)
+                    base = seq[read_i + k]
+                    if site in table and base == ord("G" if reverse
+                                                     else "C"):
+                        on = table[site][hap]
+                        meth[read_i + k] = int(rng.randint(200, 251)) \
+                            if on else int(rng.randint(5, 41))
+                    elif base == ord("T" if reverse else "A") and \
+                            rng.rand() < 0.05:
+                        m6a[read_i + k] = int(rng.randint(1, 256))
+                ref_i += n
+                read_i += n
+            elif op in (_I, _S):
+                read_i += n
+            elif op in (_D, _N):
+                ref_i += n
+        order = range(len(seq) - 1, -1, -1) if reverse else \
+            range(len(seq))
+        c_base, a_base = (ord("G"), ord("T")) if reverse else \
+            (ord("C"), ord("A"))
+        skip = (b"", b"?", b".")[int(rng.randint(3))]
+        c_text, c_probs = _mm_item(
+            b"C+m", [i for i in order if seq[i] == c_base], meth, skip)
+        a_text, a_probs = _mm_item(
+            b"A+a", [i for i in order if seq[i] == a_base], m6a, b"")
+        mm_tag, ml_tag = (b"Mm", b"Ml") if rng.rand() < 0.2 else \
+            (b"MM", b"ML")
+        row["aux"] += _aux_z(mm_tag, c_text + a_text) + _aux_b(
+            ml_tag, b"C", np.array(c_probs + a_probs, np.uint8))
+    return dict(sample, reads=_pack_reads(rows))
 
 
 def read_batch(sample: dict, bam_module):

@@ -455,13 +455,16 @@ def test_host_composed_alt_modes_still_raise(short_paths, mode):
 @pytest.mark.parametrize("preset", ["PACBIO", "MASSEQ", "ONT_R104"])
 def test_long_read_presets_need_only_direct_phasing(long_paths, preset):
     """A long-read preset needed direct phasing and nothing else: with it
-    ported, the preset is accepted with its defaults (phase_reads on);
-    methylation-aware phasing still raises, naming methylation."""
+    ported, the preset is accepted with its defaults (phase_reads on),
+    and with methylation-aware phasing; the small model still raises,
+    naming its item."""
     options = preset_options(PORT, long_paths, preset)
     assert options.phase_reads
     tcore.RegionProcessor(options)
     options.enable_methylation_aware_phasing = True
+    tcore.RegionProcessor(options)
+    options.call_small_model_examples = True
     with pytest.raises(NotImplementedError) as raised:
         tcore.RegionProcessor(options)
-    assert "methylation" in str(raised.value)
+    assert "small model" in str(raised.value)
     assert "alt_aligned" not in str(raised.value)

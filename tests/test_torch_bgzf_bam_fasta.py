@@ -304,15 +304,6 @@ def test_parse_hp_tags_and_aux(paths):
         np.testing.assert_array_equal(got[key], want[key])
 
 
-def test_unported_aux_parsers_raise(paths):
-    with tbam.BamReader(paths["reads"]) as t:
-        batch = t.query(tt.Range("chr2", 0, 500))
-        for method in (t.apply_original_quality_scores, t.parse_methylation,
-                       t.parse_ultima_tags):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                method(batch)
-
-
 def test_missing_index_and_bad_magic(paths, tmp_path):
     import shutil
 

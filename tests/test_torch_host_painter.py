@@ -172,27 +172,6 @@ def test_crowded_windows_follow_the_native_shuffle():
             jax_native.shuffle_indices(n, 2101079370))
 
 
-@pytest.mark.parametrize("channel", sorted(tpileup.AUX_CHANNELS))
-def test_aux_channels_raise_naming_methylation(channel):
-    reference, _, (batch, calls, combos) = regions(5, 40)
-    options = tpileup.PileupOptions(channels=(1, channel), width=77,
-                                    height=40)
-    encoder = tpileup.PileupEncoder(options)
-    window = reference_window(reference, options, calls[1].variant)
-    with pytest.raises(NotImplementedError, match="methylation"):
-        encoder.build_pileup(calls[1], window, batch, range(len(batch)),
-                             combos[1])
-    # A read that the painter keeps reaches the channel and raises.
-    start = calls[1].variant.start - options.half_width
-    plain = tpileup.PileupEncoder(tpileup.PileupOptions(
-        channels=(1,), width=77, height=40))
-    kept = next(i for i in range(len(batch)) if plain.encode_read_row(
-        batch, i, window, start, calls[1].variant.start, 0) is not None)
-    with pytest.raises(NotImplementedError, match="methylation"):
-        encoder.encode_read_row(batch, kept, window, start,
-                                calls[1].variant.start, 0)
-
-
 def test_encode_read_row_matches_jax_read_by_read():
     """Every read of the region through `encode_read_row`, bailing reads
     (None) included, with every non-aux channel."""

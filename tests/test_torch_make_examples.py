@@ -226,11 +226,6 @@ def test_model_presets_match_jax(model_type):
 
 UNPORTED = {
     "cram": dict(reads_filename="reads.cram"),
-    "methylation-calling": dict(enable_methylation_calling=True),
-    "methylation-phasing": dict(enable_methylation_aware_phasing=True),
-    "methylation-aux": dict(parse_sam_aux_fields=True,
-                            aux_fields_to_keep=["HP", "MM", "ML"]),
-    "original-qualities": dict(use_original_quality_scores=True),
     "small-model": dict(call_small_model_examples=True),
     "small-model-train": dict(write_small_model_examples=True),
     "small-model-path": dict(trained_small_model_path="m"),
@@ -241,8 +236,6 @@ UNPORTED = {
     "confident-regions": dict(confident_regions_filename="c.bed"),
     "downsample-classes": dict(downsample_classes=[1.0, 0.5, 0.5]),
     "denovo": dict(denovo_regions=["chr1:1-10"]),
-    "candidate-sweep": dict(mode="candidate_sweep"),
-    "normalize-reads": dict(normalize_reads=True),
 }
 
 
@@ -275,14 +268,6 @@ def test_alt_aligned_pileups_raise(paths, tmp_path, mode):
     for suffix in ("", ".example_info.json"):
         assert filecmp.cmp(written[0] + suffix, written[1] + suffix,
                            shallow=False)
-
-
-@pytest.mark.parametrize("channel", [23, 24, 28, 29, 30])
-def test_aux_driven_channels_raise(paths, channel):
-    options = wgs_options(PORT, paths)
-    options.pileup_options.channels = (1, 2, 3, 4, 5, 6, channel)
-    with pytest.raises(NotImplementedError, match="methylation"):
-        tcore.RegionProcessor(options)
 
 
 @pytest.mark.parametrize("preset", ["PACBIO", "MASSEQ", "ONT_R104"])

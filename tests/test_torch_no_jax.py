@@ -20,17 +20,20 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "core.cigar", "core.genomics_math", "core.protowire", "core.ranges",
     "core.sharded_files", "core.types",
     "io.bam", "io.bam_writer", "io.bgzf", "io.examples", "io.fasta",
-    "io.flax_msgpack", "io.tabix", "io.tfrecord", "io.vcf",
+    "io.flax_msgpack", "io.methylation", "io.tabix", "io.tfrecord",
+    "io.vcf",
     "make_examples.allele_counter", "make_examples.allele_frequency",
     "make_examples.alt_aligned",
     "make_examples.core", "make_examples.examples_builder",
+    "make_examples.normalize",
     "make_examples.pileup", "make_examples.pileup_device",
     "make_examples.presets", "make_examples.shuffle",
     "make_examples.variant_caller", "make_examples.vcf_candidate_importer",
     "models.checkpoint", "models.inception_v3",
     "ops._build", "ops.pileup_paint",
     "parallel.stream_pipeline",
-    "phasing.direct_phasing",
+    "phasing.direct_phasing", "phasing.merge_phased_reads",
+    "phasing.methylation_aware_phasing",
     "postprocess.genotype", "postprocess.haplotypes", "postprocess.merge",
     "postprocess.multiallelic_model", "postprocess.pipeline",
     "realign.config", "realign.debruijn_graph", "realign.fast_pass_aligner",

@@ -331,7 +331,7 @@ def test_a_failing_shard_fails_the_run(inputs, tmp_path):
         rd.main(["--ref", inputs["ref"], "--reads", inputs["reads"],
                  "--output_vcf", str(tmp_path / "x.vcf"), "--device", "cpu",
                  "--allow_uninitialized_model", "--num_shards", "2",
-                 "--channel_list", "BASE_CHANNELS,base_6ma"])
+                 "--call_small_model_examples"])
 
 
 def test_parser_is_the_jax_one_plus_device():
@@ -340,4 +340,6 @@ def test_parser_is_the_jax_one_plus_device():
                 for a in parser._actions]
 
     got, want = flags(rd.build_parser()), flags(jrd.build_parser())
-    assert got[:-1] == want and got[-1] == ("device", "cuda", None, False)
+    assert got[:-2] == want and got[-2:] == [
+        ("make_examples_extra_args", None, None, False),
+        ("device", "cuda", None, False)]

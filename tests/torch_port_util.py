@@ -1,6 +1,8 @@
 """Shared inputs for the tests that hold the PyTorch port
 (deepvariant_tpu_torch) against the JAX package."""
 
+import os
+
 import numpy as np
 
 from deepvariant_tpu_torch.models.inception_v3 import (
@@ -513,3 +515,57 @@ def merge_by_contig(monkeypatch, contigs=("chr1", "chr2")):
                 ref_lookup=ref_lookup, only_keep_pass=only_keep_pass)
 
     monkeypatch.setattr(jpipe, "merge_variants_and_nonvariants", by_contig)
+
+
+# -- the read-side options ------------------------------------------------------
+
+def tagged_short_sample(seed=7, contig_lengths=(("chr1", 6000),
+                                                ("chr2", 3000))):
+    """`stage1_sample` with OQ, tp/t0 and right-shifted homopolymer
+    indels on its reads (`synthetic.add_read_options`)."""
+    from deepvariant_tpu_torch.testing import synthetic
+
+    return synthetic.add_read_options(stage1_sample(seed, contig_lengths),
+                                      seed + 100, shifted_indels=40)
+
+
+def methylated_long_sample(seed=5, contig_lengths=(("chr1", 6000),
+                                                   ("chr2", 3000))):
+    """A long-read sample at 12x of 2 kb reads with a variant every 600
+    bases, the SNPs C>T at CpGs, and MM/ML tags
+    (`synthetic.add_methylation`): methylation-aware phasing finds
+    informative sites there and phases reads that direct phasing left
+    unphased."""
+    from deepvariant_tpu_torch.testing import synthetic
+
+    sample = synthetic.synthetic_longread_sample(
+        seed, contig_lengths, depth=12, mean_read_length=2000,
+        variant_spacing=600, cpg_snps=True)
+    return synthetic.add_methylation(sample, seed + 100)
+
+
+def run_cli_outputs(cli, paths, out_dir, flags, shards=1, mode="calling"):
+    """Run one make_examples CLI module over every shard with the
+    examples, candidates and gVCF outputs uncompressed; returns
+    {output: [shard file bytes]} (a missing output is absent)."""
+    from deepvariant_tpu_torch.core.sharded_files import glob_sharded_inputs
+
+    os.makedirs(out_dir, exist_ok=True)
+    spec = f"@{shards}" if shards > 1 else ""
+    files = {name: os.path.join(out_dir, f"{name}.tfrecord{spec}")
+             for name in ("examples", "candidates", "gvcf")}
+    for task in range(shards):
+        argv = ["--mode", mode, "--ref", paths["ref"],
+                "--reads", paths["reads"], "--examples", files["examples"],
+                "--candidates", files["candidates"], "--gvcf", files["gvcf"],
+                "--task", str(task)] + list(flags)
+        if shards > 1:
+            argv += ["--num_shards", str(shards)]
+        assert cli.main(argv) == 0
+    out = {}
+    for name, spec_path in files.items():
+        for path in glob_sharded_inputs(spec_path):
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    out.setdefault(name, []).append(f.read())
+    return out
