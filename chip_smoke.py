@@ -122,16 +122,48 @@ Phases:
      run_deepvariant reports them, the examples per second from the BAM
      to the VCF of each route, stage 1's examples per second per shard,
      and the plan form's launches on (b).
- 12. One JSON line per the kernels, the card's name and power limit, and
+ 12. The read-side options of make_examples. Route A, the kernel's
+     route: phase 11's sample with OQ tags and indels written
+     right-shifted in homopolymers, the WGS defaults plus
+     `--normalize_reads` and `--use_original_quality_scores`; one shard
+     in this process (how many reads normalization rewrote and OQ
+     replaced, normalization's seconds per kb; every host-painted image
+     equal to the CUDA plan form's), then run_streaming_pipeline with the
+     device encoder to a VCF (phase 7's checks, one launch of the plan
+     form per batch), then the make_examples CLI with the same flags
+     (its examples equal the in-process shard's), call_variants on the
+     card and postprocess_variants; the two VCFs may differ only where
+     bfloat16 moved a rounded probability. Route C: the make_examples
+     CLI with the WGS channels and the three homopolymer-quality
+     channels on the same reads' tp/t0 (realigner off: realigned reads
+     drop their decoded tags, as in the JAX package), 100x221x10, and
+     call_variants on the card. The candidate sweep: `--mode
+     candidate_sweep` in 2 shards, the positions merged and partitioned.
+     Route B: long reads with MM/ML tags (5mC at CpGs, haplotype-specific
+     at a share of them, SNPs C>T at CpGs, some 6mA), the PACBIO channels
+     plus base_methylation and base_6ma (100x147x12),
+     `--enable_methylation_calling` and
+     `--enable_methylation_aware_phasing`: one shard in this process
+     (MM/ML parsing reads/s, methylation-aware phasing and MF/MD seconds
+     per kb, reads assigned by methylation), run_deepvariant staged (2
+     shards, the read-phase TSVs), merge_phased_reads and the postprocess
+     CLI with the switches TSV, then `--stream` (the host encoder). Fails
+     if no record carries MF, MD and MT or none MI, if the streamed VCF's
+     methylation fields differ from the staged VCF's, or if the paint
+     kernel was launched on this route (the methylation channels are the
+     host painter's, as in the JAX package).
+ 13. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
 paths) and read just after, again around phase 5 (the long-read path),
 again around the stream of each of phases 7, 8, 9 and 10 (in phases 9
 and 10 around run_streaming_pipeline: the stream, then stage 3, which
-paints nothing), and around each `--stream` run of phase 11 (the
-host-encode one must launch none); the comparisons of phase 2 and of
-the checks after the paths are not counted. Any failed check raises, and the script exits non-zero; it also
+paints nothing), around each `--stream` run of phase 11 (the
+host-encode one must launch none), around route A's stream in phase 12
+and around the whole of route B (which must launch none); the
+comparisons of phase 2 and of the checks after the paths are not
+counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
 """
 
@@ -227,6 +259,25 @@ RUN_DV_CONTIGS = (("chr1", 12_000), ("chr2", 8_000))
 RUN_DV_HOST_CHANNELS = ("BASE_CHANNELS,insert_size,gc_content,"
                         "read_mapping_percent")
 RUN_DV_HOST_SHAPE = (100, 221, 9)
+# Phase 12. Route A: phase 11's sample with OQ tags and indels written
+# right-shifted in homopolymers; route C: the WGS channels and the three
+# homopolymer-quality channels on its reads' tp/t0; route B: long reads
+# with 5mC at CpGs (haplotype-specific at a share of them) and 6mA, the
+# PACBIO channels and the two methylation channels.
+READ_OPTIONS_SHIFTED_INDELS = 60
+ULTIMA_CHANNEL_LIST = ("BASE_CHANNELS,insert_size,"
+                       "homopolymer_insertion_quality,"
+                       "homopolymer_deletion_quality,"
+                       "inter_homopolymer_insertion_quality")
+ULTIMA_SHAPE = (100, 221, 10)
+SWEEP_PARTITION_CANDIDATES = 8
+METH_CONTIGS = (("chr1", 24_000), ("chr2", 12_000))
+METH_DEPTH = 15
+METH_READ_LENGTH = 2000
+METH_SPACING = 600
+METH_CHANNEL_LIST = ("BASE_CHANNELS,haplotype,supplementary_alignment,"
+                     "base_methylation,base_6ma")
+METH_SHAPE = (100, 147, 12)
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
@@ -1938,55 +1989,18 @@ def example_records(spec: str) -> list:
     return out
 
 
-def phase_run_deepvariant(tmp: str, device, card: str):
-    """Phase 11: the one-step command, `scripts/run_deepvariant.py`, from
-    a BAM and a FASTA to a VCF and a gVCF, staged (2 shards) and
-    streamed with each encoder; the host painter held bit-exact against
-    the CUDA plan form. Returns (numbers, the kernels-line entry of the
-    device-encode stream with its launches)."""
-    import torch
-
-    from deepvariant_tpu_torch.calling.call_variants import read_cvos
-    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
-    from deepvariant_tpu_torch.io import examples as example_codec
-    from deepvariant_tpu_torch.make_examples.core import (
-        MakeExamplesOptions,
-        make_examples_runner,
-    )
+def examples_beside_plans(options, tag: str, card: str):
+    """`make_examples_runner` in this process with an examples file (the
+    host painter), and beside each example the plan of the same
+    candidate, which the CUDA plan form paints. Returns (the serialized
+    examples, the plans, the host painter's ms per example, the runner's
+    seconds)."""
+    from deepvariant_tpu_torch.make_examples.core import make_examples_runner
     from deepvariant_tpu_torch.make_examples.examples_builder import (
         ExamplesBuilder,
     )
-    from deepvariant_tpu_torch.make_examples.pileup import (
-        WGS_CHANNELS,
-        PileupEncoder,
-    )
-    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
-    from deepvariant_tpu_torch.models.checkpoint import save_variables
-    from deepvariant_tpu_torch.ops import pileup_paint as pp
-    from deepvariant_tpu_torch.testing import synthetic
+    from deepvariant_tpu_torch.make_examples.pileup import PileupEncoder
 
-    tag = "run-dv"
-    directory = os.path.join(tmp, tag)
-    sample = synthetic.synthetic_sample(
-        SEED + 11, RUN_DV_CONTIGS, variant_spacing=REALIGN_VARIANT_SPACING)
-    paths = write_sample_files(sample, directory, tag)
-    model = seeded_model(SHAPE[2])
-    checkpoint = os.path.join(directory, "ckpt")
-    save_variables(os.path.join(checkpoint, "model.msgpack"), model,
-                   {"shape": list(SHAPE), "channels": WGS_CHANNELS})
-    host_model = seeded_model(RUN_DV_HOST_SHAPE[2])
-    host_checkpoint = os.path.join(directory, "ckpt-host")
-    save_variables(os.path.join(host_checkpoint, "model.msgpack"),
-                   host_model, {"shape": list(RUN_DV_HOST_SHAPE)})
-
-    # One shard in this process: the host painter's examples, and beside
-    # them the plans of the same candidates, which the card paints.
-    options = apply_model_preset(MakeExamplesOptions(
-        reads_filename=paths["reads"], ref_filename=paths["ref"],
-        examples_filename=os.path.join(directory, "in-process.tfrecord")),
-        "WGS")
-    if not options.realigner_enabled:
-        raise AssertionError("the WGS preset left the realigner off")
     plans, painted = [], {"s": 0.0, "calls": 0}
     plain_build = ExamplesBuilder.build_examples_for_candidate
     plain_paint = PileupEncoder.build_pileup
@@ -2021,13 +2035,18 @@ def phase_run_deepvariant(tmp: str, device, card: str):
     print(f"[{tag}] the host painter (PileupEncoder.build_pileup, one row "
           f"at a time in numpy): {len(records)} examples in "
           f"{painted['s']:.3f} s, {paint_ms:.3f} ms per example; the "
-          f"in-process shard (realigner on, planning beside painting) "
-          f"{runner_s:.2f} s; host CPUs {os.cpu_count()}, beside {card}")
+          f"in-process shard (planning beside painting) {runner_s:.2f} s; "
+          f"host CPUs {os.cpu_count()}, beside {card}")
+    return records, plans, paint_ms, runner_s
 
-    # The host painter's images against the CUDA plan form's on the same
-    # candidates, bit for bit.
-    predictor = PlanPredictor(model, options.pileup_options,
-                              batch_size=BATCH, device=device)
+
+def check_host_images(predictor, records, plans, tag: str) -> None:
+    """Every host-painted image equals the CUDA plan form's image of the
+    same candidate's plan, bit for bit."""
+    import torch
+
+    from deepvariant_tpu_torch.io import examples as example_codec
+
     mismatched = 0
     with torch.inference_mode():
         for i in range(0, len(plans), BATCH):
@@ -2047,6 +2066,77 @@ def phase_run_deepvariant(tmp: str, device, card: str):
     if mismatched:
         raise AssertionError(f"{tag}: {mismatched} host-painted images "
                              "differ from the CUDA plan form's")
+
+
+def vcfs_agree(vcf, cvos, other_vcf, other_cvos, tag: str) -> int:
+    """Two VCFs of the same candidates differ only at records where the
+    CNN's bfloat16 moved a rounded probability of the record's CVO group
+    between the two runs. Returns the number of records that differ."""
+    moved = {}
+    by_locus = {locus_key(c.variant, c.alt_allele_indices): c
+                for c in other_cvos}
+    for c in cvos:
+        other = by_locus[locus_key(c.variant, c.alt_allele_indices)]
+        if c.genotype_probabilities != other.genotype_probabilities:
+            moved[(c.variant.reference_name, c.variant.start)] = True
+    a, b = vcf_records(vcf), vcf_records(other_vcf)
+    if len(a) != len(b):
+        raise AssertionError(f"{tag}: {len(a)} and {len(b)} VCF records")
+    differ = [(x, y) for x, y in zip(a, b) if x != y]
+    stray = [x for x, _ in differ if (
+        x.split("\t")[0], int(x.split("\t")[1]) - 1) not in moved]
+    print(f"[{tag}] {len(differ)} of {len(a)} records differ, all where the "
+          f"CNN's bfloat16 moved a rounded probability ({len(moved)} sites "
+          "with a moved probability)")
+    if stray:
+        raise AssertionError(f"{tag}: {len(stray)} records differ where no "
+                             f"probability moved: {stray[:2]}")
+    return len(differ)
+
+
+def phase_run_deepvariant(tmp: str, device, card: str):
+    """Phase 11: the one-step command, `scripts/run_deepvariant.py`, from
+    a BAM and a FASTA to a VCF and a gVCF, staged (2 shards) and
+    streamed with each encoder; the host painter held bit-exact against
+    the CUDA plan form. Returns (numbers, the kernels-line entry of the
+    device-encode stream with its launches)."""
+    from deepvariant_tpu_torch.calling.call_variants import read_cvos
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.make_examples.core import MakeExamplesOptions
+    from deepvariant_tpu_torch.make_examples.pileup import WGS_CHANNELS
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.models.checkpoint import save_variables
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.testing import synthetic
+
+    tag = "run-dv"
+    directory = os.path.join(tmp, tag)
+    sample = synthetic.synthetic_sample(
+        SEED + 11, RUN_DV_CONTIGS, variant_spacing=REALIGN_VARIANT_SPACING)
+    paths = write_sample_files(sample, directory, tag)
+    model = seeded_model(SHAPE[2])
+    checkpoint = os.path.join(directory, "ckpt")
+    save_variables(os.path.join(checkpoint, "model.msgpack"), model,
+                   {"shape": list(SHAPE), "channels": WGS_CHANNELS})
+    host_model = seeded_model(RUN_DV_HOST_SHAPE[2])
+    host_checkpoint = os.path.join(directory, "ckpt-host")
+    save_variables(os.path.join(host_checkpoint, "model.msgpack"),
+                   host_model, {"shape": list(RUN_DV_HOST_SHAPE)})
+
+    # One shard in this process: the host painter's examples, and beside
+    # them the plans of the same candidates, which the card paints.
+    options = apply_model_preset(MakeExamplesOptions(
+        reads_filename=paths["reads"], ref_filename=paths["ref"],
+        examples_filename=os.path.join(directory, "in-process.tfrecord")),
+        "WGS")
+    if not options.realigner_enabled:
+        raise AssertionError("the WGS preset left the realigner off")
+    records, plans, paint_ms, _ = examples_beside_plans(options, tag, card)
+    # The host painter's images against the CUDA plan form's on the same
+    # candidates, bit for bit.
+    predictor = PlanPredictor(model, options.pileup_options,
+                              batch_size=BATCH, device=device)
+    check_host_images(predictor, records, plans, tag)
 
     def argv(name, *more, ckpt=checkpoint):
         return ["--ref", paths["ref"], "--reads", paths["reads"],
@@ -2109,26 +2199,8 @@ def phase_run_deepvariant(tmp: str, device, card: str):
     check_gvcf(stream_gvcf, stream_vcf, paths["ref"], tag + " stream", card)
     # The staged and streamed VCFs differ only where the CNN's bfloat16
     # moved a rounded probability of the record's CVO group.
-    moved = {}
-    staged_by = {locus_key(c.variant, c.alt_allele_indices): c
-                 for c in staged_cvos}
-    for c in stream_cvos:
-        other = staged_by[locus_key(c.variant, c.alt_allele_indices)]
-        if c.genotype_probabilities != other.genotype_probabilities:
-            moved[(c.variant.reference_name, c.variant.start)] = True
-    a, b = vcf_records(staged_vcf), vcf_records(stream_vcf)
-    if len(a) != len(b):
-        raise AssertionError(f"{tag}: {len(a)} staged and {len(b)} streamed "
-                             "VCF records")
-    differ = [(x, y) for x, y in zip(a, b) if x != y]
-    stray = [x for x, _ in differ if (
-        x.split("\t")[0], int(x.split("\t")[1]) - 1) not in moved]
-    print(f"[{tag}] staged VCF vs streamed VCF: {len(differ)} of {len(a)} "
-          f"records differ, all where the CNN's bfloat16 moved a rounded "
-          f"probability ({len(moved)} sites with a moved probability)")
-    if stray:
-        raise AssertionError(f"{tag}: {len(stray)} records differ where no "
-                             f"probability moved: {stray[:2]}")
+    differ = vcfs_agree(staged_vcf, staged_cvos, stream_vcf, stream_cvos,
+                        tag + " staged VCF vs streamed VCF")
     stream_rate = len(stream_cvos) / stream_s
 
     # (c) Streamed, a channel list the plan painter lacks: the workers
@@ -2169,8 +2241,400 @@ def phase_run_deepvariant(tmp: str, device, card: str):
         "stream_s": stream_s, "stream_examples_per_s": stream_rate,
         "host_stream_s": host_s,
         "host_stream_examples_per_s": len(host_cvos) / host_s,
-        "vcf_records_moved_by_bf16": len(differ),
+        "vcf_records_moved_by_bf16": differ,
         "plan_form_launches": launches}.items()}
+    return numbers, entry
+
+
+def wrap(owner, name: str, tally: dict, key: str, count=None):
+    """Replace `owner.name` by a wrapper that adds its seconds to
+    tally[key + "_s"], and `count(args, result)` to tally[key] when
+    given; returns a function that puts the plain one back."""
+    plain = getattr(owner, name)
+    tally.setdefault(key + "_s", 0.0)
+    tally.setdefault(key, 0)
+
+    def wrapped(*args, **kwargs):
+        start = time.perf_counter()
+        result = plain(*args, **kwargs)
+        tally[key + "_s"] += time.perf_counter() - start
+        if count is not None:
+            tally[key] += count(args, result)
+        return result
+
+    setattr(owner, name, wrapped)
+    return lambda: setattr(owner, name, plain)
+
+
+def format_fields(path: str) -> dict:
+    """{(contig, pos, ref, alt): {MF, MD, MT, MI values}} of a VCF."""
+    out = {}
+    for line in vcf_records(path):
+        cols = line.split("\t")
+        fields = dict(zip(cols[8].split(":"), cols[9].split(":")))
+        out[tuple(cols[:2] + cols[3:5])] = {
+            k: v for k, v in fields.items() if k in ("MF", "MD", "MT", "MI")}
+    return out
+
+
+def phase_read_options(tmp: str, device, card: str):
+    """Phase 12: the read-side options of make_examples. Route A (the
+    kernel's route): WGS with its defaults, read normalization and the
+    OQ tag; route B: PACBIO with the methylation channels, methylation
+    calling and methylation-aware phasing (no paint kernel, as in the
+    JAX package); route C: the three homopolymer-quality channels; and
+    the candidate sweep. Returns (numbers, the kernels-line entry of
+    route A's stream with its launches)."""
+    from deepvariant_tpu_torch.calling.call_variants import read_cvos
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.core.types import Range, Variant
+    from deepvariant_tpu_torch.io import examples as example_codec
+    from deepvariant_tpu_torch.io.bam import BamReader
+    from deepvariant_tpu_torch.io.tfrecord import TFRecordReader
+    from deepvariant_tpu_torch.make_examples import core
+    from deepvariant_tpu_torch.make_examples.pileup import WGS_CHANNELS
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.models.checkpoint import save_variables
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.phasing import merge_phased_reads
+    from deepvariant_tpu_torch.scripts import call_variants as cv_cli
+    from deepvariant_tpu_torch.scripts import make_examples as me_cli
+    from deepvariant_tpu_torch.scripts import postprocess_variants as pp_cli
+    from deepvariant_tpu_torch.testing import synthetic
+
+    cpus = os.cpu_count()
+    phase_start = time.time()
+
+    def quiet(main, argv, tag):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        for line in buf.getvalue().strip().splitlines():
+            print(f"[{tag}] {line}")
+        if rc != 0:
+            raise AssertionError(f"{tag}: exited {rc}")
+
+    # -- route A: normalization and OQ, the plans painted by the kernel --
+    tag = "read-options"
+    directory = os.path.join(tmp, tag)
+    sample = synthetic.add_read_options(
+        synthetic.synthetic_sample(SEED + 11, RUN_DV_CONTIGS,
+                                   variant_spacing=REALIGN_VARIANT_SPACING),
+        SEED + 12, shifted_indels=READ_OPTIONS_SHIFTED_INDELS)
+    paths = write_sample_files(sample, directory, tag)
+    kb = sum(n for _, n in RUN_DV_CONTIGS) / 1000
+    model = seeded_model(SHAPE[2])
+    checkpoint = os.path.join(directory, "ckpt")
+    save_variables(os.path.join(checkpoint, "model.msgpack"), model,
+                   {"shape": list(SHAPE), "channels": WGS_CHANNELS})
+    flags = ["--model_preset", "WGS", "--normalize_reads",
+             "--use_original_quality_scores"]
+
+    def options(*more):
+        args = me_cli.build_parser().parse_args([
+            "--mode", "calling", "--ref", paths["ref"], "--reads",
+            paths["reads"], "--examples", "unused"] + flags + list(more))
+        out = me_cli.resolved_options_from_args(args)
+        if not (out.normalize_reads and out.use_original_quality_scores
+                and out.realigner_enabled):
+            raise AssertionError(f"{tag}: the flags did not reach the "
+                                 "options")
+        return out
+
+    tally = {}
+    restores = [
+        wrap(core, "normalize_batch_cigars", tally, "normalized",
+             lambda args, n: n),
+        wrap(BamReader, "apply_original_quality_scores", tally, "oq_reads",
+             lambda args, n: n)]
+    try:
+        in_process = options()
+        in_process.examples_filename = os.path.join(directory,
+                                                    "in-process.tfrecord")
+        records, plans, paint_ms, runner_s = examples_beside_plans(
+            in_process, tag, card)
+    finally:
+        for restore in restores:
+            restore()
+    print(f"[{tag}] read normalization rewrote {tally['normalized']} reads "
+          f"in {tally['normalized_s']:.3f} s ({tally['normalized_s'] / kb:.5f}"
+          f" s per kb); the OQ tag replaced the qualities of "
+          f"{tally['oq_reads']} reads; host CPUs {cpus}, beside {card}")
+    if tally["normalized"] == 0 or tally["oq_reads"] == 0:
+        raise AssertionError(f"{tag}: normalization rewrote "
+                             f"{tally['normalized']} reads, OQ replaced "
+                             f"{tally['oq_reads']}")
+    norm = tally
+    predictor = PlanPredictor(model, in_process.pileup_options,
+                              batch_size=BATCH, device=device)
+    check_host_images(predictor, records, plans, tag)
+    # The stream with the device encoder, to a VCF.
+    vcf = os.path.join(directory, "stream.vcf.gz")
+    stream, launches, ordered, stream_cvos = run_stream(
+        options(), plans, predictor, device, card, tag + " stream", vcf=vcf,
+        ref=paths["ref"], sample_name="default")
+    check_vcf(vcf, stream_cvos, paths["ref"], "default", tag + " stream",
+              card)
+    # The make_examples CLI with the same flags, call_variants on the
+    # card, postprocess_variants.
+    examples = os.path.join(directory, "cli.tfrecord")
+    start = time.time()
+    quiet(me_cli.main, ["--mode", "calling", "--ref", paths["ref"],
+                        "--reads", paths["reads"], "--examples", examples]
+          + flags, tag + " make_examples")
+    cli_records = example_records(examples)
+    if sorted(cli_records) != sorted(records):
+        raise AssertionError(f"{tag}: the CLI's {len(cli_records)} examples "
+                             f"differ from the in-process shard's")
+    cvo_path = os.path.join(directory, "cvo.tfrecord.gz")
+    quiet(cv_cli.main, ["--examples", examples, "--outfile", cvo_path,
+                        "--checkpoint", checkpoint, "--batch_size",
+                        str(BATCH)], tag + " call_variants")
+    staged_vcf = os.path.join(directory, "staged.vcf.gz")
+    quiet(pp_cli.main, ["--ref", paths["ref"], "--infile", cvo_path,
+                        "--outfile", staged_vcf], tag + " postprocess")
+    staged_s = time.time() - start
+    staged_cvos = list(read_cvos(cvo_path))
+    check_vcf(staged_vcf, staged_cvos, paths["ref"],
+              pp_cli._sample_name_from_cvos(cvo_path), tag + " staged", card)
+    differ = vcfs_agree(staged_vcf, staged_cvos, vcf, stream_cvos,
+                        tag + " staged VCF vs streamed VCF")
+    print(f"[{tag}] the CLI's examples == the in-process shard's; staged "
+          f"(make_examples, call_variants, postprocess_variants) "
+          f"{staged_s:.2f} s; {card}")
+    entry = from_files_entry("pileup_paint_plan_read_options", predictor,
+                             ordered, tag, card)
+    entry["launches"] = launches
+
+    # -- route C: the homopolymer-quality channels, on reads with tp/t0 --
+    ctag = "ultima"
+    examples = os.path.join(directory, "ultima.tfrecord")
+    ultima_model = seeded_model(ULTIMA_SHAPE[2])
+    ultima_ckpt = os.path.join(directory, "ckpt-ultima")
+    save_variables(os.path.join(ultima_ckpt, "model.msgpack"), ultima_model,
+                   {"shape": list(ULTIMA_SHAPE)})
+    tally = {}
+    restore = wrap(BamReader, "parse_ultima_tags", tally, "tp_reads",
+                   lambda args, n: n)
+    try:
+        quiet(me_cli.main, ["--mode", "calling", "--ref", paths["ref"],
+                            "--reads", paths["reads"], "--examples",
+                            examples, "--model_preset", "WGS",
+                            "--no-realign_reads", "--channel_list",
+                            ULTIMA_CHANNEL_LIST], ctag + " make_examples")
+    finally:
+        restore()
+    shape = example_codec.read_example_info(examples)["shape"]
+    images = np.stack([example_codec.parse_example(r).image
+                       for r in example_records(examples)])
+    flows = [len(np.unique(images[:, 5:, :, c])) for c in (7, 8, 9)]
+    cvo_path = os.path.join(directory, "ultima.cvo.tfrecord.gz")
+    quiet(cv_cli.main, ["--examples", examples, "--outfile", cvo_path,
+                        "--checkpoint", ultima_ckpt, "--batch_size",
+                        str(BATCH)], ctag + " call_variants")
+    ultima_cvos = check_cvos(cvo_path, len(images))
+    print(f"[{ctag}] {len(images)} examples of shape {tuple(shape)} from "
+          f"{tally['tp_reads']} reads with a tp tag; distinct values in the "
+          f"read rows of the homopolymer insertion, deletion and "
+          f"inter-homopolymer planes: {flows}; {len(ultima_cvos)} CVOs from "
+          f"call_variants on the card; {card}")
+    if list(shape) != list(ULTIMA_SHAPE) or min(flows) < 3 or \
+            tally["tp_reads"] == 0:
+        raise AssertionError(f"{ctag}: shape {shape}, planes {flows}, "
+                             f"{tally['tp_reads']} reads with tp")
+
+    # -- the candidate sweep, on route A's sample --
+    stag = "sweep"
+    sweep_paths = []
+    start = time.time()
+    found = 0
+    for task in range(STREAM_WORKERS):
+        sweep = options()
+        sweep.mode = "candidate_sweep"
+        sweep.task_id, sweep.num_shards = task, STREAM_WORKERS
+        sweep_paths.append(os.path.join(directory, f"sweep-{task}.pos"))
+        found += core.candidate_sweep_runner(sweep, sweep_paths[-1])
+    sweep_s = time.time() - start
+    merged = core.load_candidate_positions(sweep_paths)
+    positions = merged[merged >= 0]
+    regions = [Range(name, 0, n) for name, n in RUN_DV_CONTIGS]
+    partitions = core.partition_by_candidates(regions, merged,
+                                              SWEEP_PARTITION_CANDIDATES)
+    print(f"[{stag}] --mode candidate_sweep in {STREAM_WORKERS} shards: "
+          f"{len(positions)} candidate positions in {sweep_s:.2f} s, merged "
+          f"into {len(partitions)} partitions of at most "
+          f"{SWEEP_PARTITION_CANDIDATES} candidates; host CPUs {cpus}")
+    if len(positions) != found or found == 0 or \
+            int((merged == core.END_OF_REGION).sum()) != len(regions) or \
+            len(partitions) <= len(regions):
+        raise AssertionError(f"{stag}: {len(positions)} merged positions of "
+                             f"{found}, {len(partitions)} partitions")
+
+    # -- route B: methylation, PACBIO at full width --
+    mtag = "methylation"
+    mdir = os.path.join(tmp, mtag)
+    start = time.time()
+    msample = synthetic.add_methylation(synthetic.synthetic_longread_sample(
+        SEED + 13, METH_CONTIGS, depth=METH_DEPTH,
+        mean_read_length=METH_READ_LENGTH, variant_spacing=METH_SPACING,
+        cpg_snps=True), SEED + 14)
+    print(f"[{mtag}] made the methylated long-read sample in "
+          f"{time.time() - start:.1f} s")
+    mpaths = write_sample_files(msample, mdir, mtag)
+    mkb = sum(n for _, n in METH_CONTIGS) / 1000
+    meth_model = seeded_model(METH_SHAPE[2])
+    meth_ckpt = os.path.join(mdir, "ckpt")
+    save_variables(os.path.join(meth_ckpt, "model.msgpack"), meth_model,
+                   {"shape": list(METH_SHAPE)})
+    meth_flags = ["--model_preset", "PACBIO", "--channel_list",
+                  METH_CHANNEL_LIST, "--enable_methylation_calling",
+                  "--enable_methylation_aware_phasing"]
+    # One shard in this process, timed stage by stage.
+    args = me_cli.build_parser().parse_args([
+        "--mode", "calling", "--ref", mpaths["ref"], "--reads",
+        mpaths["reads"], "--examples", os.path.join(mdir, "in-process.tfrecord"),
+        "--candidates", os.path.join(mdir, "candidates.tfrecord")]
+        + meth_flags)
+    moptions = me_cli.resolved_options_from_args(args)
+    tally = {}
+
+    def assigned(args, phases):
+        return sum(p != 0 and q == 0 for p, q in zip(phases, args[4]))
+
+    restores = [
+        wrap(BamReader, "parse_methylation", tally, "meth_reads",
+             lambda args, n: len(args[1])),
+        wrap(core.RegionProcessor, "_phase_by_methylation", tally,
+             "meth_phased", assigned),
+        wrap(core.RegionProcessor, "_add_methylation_stats", tally,
+             "mf_md", lambda args, result: len(args[2])),
+        wrap(core.RegionProcessor, "_methylated_ref_site_candidates", tally,
+             "ref_sites", lambda args, sites: len(sites))]
+    pp.paint_pileup.launches = 0
+    try:
+        start = time.time()
+        counts = core.make_examples_runner(moptions)
+        mrunner_s = time.time() - start
+    finally:
+        for restore in restores:
+            restore()
+    candidates = [Variant.decode(b) for b in TFRecordReader(
+        moptions.candidates_filename)]
+    with_mf = sum(any(f > 0 for f in v.calls[0].info.get("MF", []))
+                  for v in candidates if v.alternate_bases != ["."])
+    print(f"[{mtag}] one shard in process, {counts['examples']} examples "
+          f"({mkb:.0f} kb) in {mrunner_s:.2f} s: MM/ML parsing "
+          f"{tally['meth_reads']} reads in {tally['meth_reads_s']:.3f} s "
+          f"({tally['meth_reads'] / tally['meth_reads_s']:.1f} reads/s); "
+          f"methylation-aware phasing assigned {tally['meth_phased']} reads "
+          f"in {tally['meth_phased_s']:.3f} s "
+          f"({tally['meth_phased_s'] / mkb:.5f} s per kb); MF/MD on "
+          f"{tally['mf_md']} candidates in {tally['mf_md_s']:.3f} s "
+          f"({tally['mf_md_s'] / mkb:.5f} s per kb), {with_mf} with MF > 0; "
+          f"{tally['ref_sites']} '.'-alt methylated reference sites in "
+          f"{tally['ref_sites_s']:.3f} s; host CPUs {cpus}, beside {card}")
+    if tally["meth_phased"] == 0 or with_mf == 0 or tally["ref_sites"] == 0:
+        raise AssertionError(f"{mtag}: {tally}, {with_mf} candidates with MF")
+
+    def margv(name, *more):
+        return ["--model_type", "PACBIO", "--ref", mpaths["ref"],
+                "--reads", mpaths["reads"],
+                "--output_vcf", os.path.join(mdir, f"{name}.vcf.gz"),
+                "--checkpoint", meth_ckpt, "--batch_size", str(BATCH),
+                "--num_shards", str(STREAM_WORKERS),
+                "--channel_list", METH_CHANNEL_LIST,
+                "--enable_methylation_calling",
+                "--enable_methylation_aware_phasing",
+                "--intermediate_results_dir", os.path.join(mdir, name),
+                *more]
+
+    phase_spec = os.path.join(mdir, f"phase@{STREAM_WORKERS}.tsv")
+    _, mstaged_s, stages = run_deepvariant_cli(margv(
+        "staged", "--make_examples_extra_args",
+        f"output_local_read_phasing={phase_spec},output_phase_info=true"),
+        mtag + " staged", card)
+    staged_cvos = list(read_cvos(os.path.join(
+        mdir, "staged", "call_variants_output.tfrecord.gz")))
+    staged_vcf = os.path.join(mdir, "staged.vcf.gz")
+    check_vcf(staged_vcf, staged_cvos, mpaths["ref"], "default",
+              mtag + " staged", card)
+    fields = format_fields(staged_vcf)
+    n_mf = sum({"MF", "MD", "MT"} <= set(f) for f in fields.values())
+    n_mi = sum("MI" in f for f in fields.values())
+    # merge_phased_reads on the shards' read phases, then stage 3 with
+    # the switches TSV.
+    switches = os.path.join(mdir, "switches.tsv")
+    quiet(merge_phased_reads.main, [
+        "--input_path", phase_spec,
+        "--output_path", os.path.join(mdir, "merged.tsv"),
+        "--switches_output_path", switches], mtag + " merge_phased_reads")
+    with open(switches) as f:
+        n_switches = len(f.read().splitlines())
+    switched_vcf = os.path.join(mdir, "switched.vcf.gz")
+    quiet(pp_cli.main, ["--ref", mpaths["ref"], "--infile", os.path.join(
+        mdir, "staged", "call_variants_output.tfrecord.gz"),
+        "--outfile", switched_vcf, "--phased_reads_switches_output_path",
+        switches], mtag + " postprocess with switches")
+    if format_fields(switched_vcf) != fields:
+        raise AssertionError(f"{mtag}: the VCF with the switches TSV has "
+                             "other methylation fields")
+    # --stream: the methylation channels are the host painter's.
+    seen, restore = record_stream_cvos()
+    try:
+        text, mstream_s, _ = run_deepvariant_cli(margv(
+            "stream", "--stream", "--make_examples_extra_args",
+            "output_phase_info=true"), mtag + " stream", card)
+    finally:
+        restore()
+    (mstream_cvos, _), = seen
+    stream_vcf = os.path.join(mdir, "stream.vcf.gz")
+    check_vcf(stream_vcf, mstream_cvos, mpaths["ref"], "default",
+              mtag + " stream", card)
+    meth_launches = pp.paint_pileup.launches
+    same = format_fields(stream_vcf) == fields
+    print(f"[{mtag}] staged VCF: {len(fields)} records, {n_mf} with MF, MD "
+          f"and MT, {n_mi} with MI; {n_switches} (shard, region) groups in "
+          f"the switches TSV; the streamed VCF's MF/MD/MT/MI == the staged "
+          f"VCF's: {same}; paint kernel launches on this route: "
+          f"{meth_launches} (the methylation channels are painted on the "
+          f"host, as in the JAX package); BAM to VCF staged "
+          f"{len(staged_cvos) / mstaged_s:.2f}, streamed (host encoder, "
+          f"100x147x12) {len(mstream_cvos) / mstream_s:.2f} examples/s; "
+          f"{card}; host CPUs {cpus}")
+    if "encoder=host" not in text or not same or n_mf == 0 or n_mi == 0 \
+            or meth_launches != 0 or n_switches == 0:
+        raise AssertionError(f"{mtag}: {n_mf} records with MF/MD/MT, {n_mi} "
+                             f"with MI, {meth_launches} launches, streamed "
+                             f"fields equal: {same}")
+    numbers = {
+        "read_options_examples": len(records),
+        "read_options_host_paint_ms_per_example": paint_ms,
+        "read_options_one_worker_s": runner_s,
+        "read_options_normalized_reads": norm["normalized"],
+        "read_options_normalize_s_per_kb": norm["normalized_s"] / kb,
+        "read_options_oq_reads": norm["oq_reads"],
+        "read_options_stream_to_vcf_s": stream.get("to_vcf_s"),
+        "read_options_staged_s": staged_s,
+        "read_options_vcf_records_moved_by_bf16": differ,
+        "read_options_plan_form_launches": launches,
+        "ultima_examples": len(images),
+        "sweep_positions": int(len(positions)),
+        "sweep_partitions": len(partitions), "sweep_s": sweep_s,
+        "methylation_examples": counts["examples"],
+        "methylation_one_worker_s": mrunner_s,
+        "methylation_kb": mkb,
+        "methylation_parse_reads_per_s":
+            tally["meth_reads"] / tally["meth_reads_s"],
+        "methylation_phasing_s_per_kb": tally["meth_phased_s"] / mkb,
+        "methylation_reads_assigned": tally["meth_phased"],
+        "methylation_mf_md_s_per_kb": tally["mf_md_s"] / mkb,
+        "methylation_vcf_records_mf_md_mt": n_mf,
+        "methylation_vcf_records_mi": n_mi,
+        "methylation_staged_s": mstaged_s, "methylation_stream_s": mstream_s,
+        "methylation_paint_launches": meth_launches,
+        "phase12_s": time.time() - phase_start}
+    print(f"[{tag}] phase 12 (routes A, C, B and the sweep) "
+          f"{numbers['phase12_s']:.1f} s; {card}")
     return numbers, entry
 
 
@@ -2251,6 +2715,11 @@ def main() -> int:
             tmp, device, card)
         summary.update(run_dv_numbers)
         kernels.append(run_dv_kernel)
+        # The read-side options: normalization and OQ on the kernel's
+        # route, methylation, the homopolymer channels, the sweep.
+        read_numbers, read_kernel = phase_read_options(tmp, device, card)
+        summary.update(read_numbers)
+        kernels.append(read_kernel)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)

@@ -449,7 +449,7 @@ def synthetic_longread_sample(
                 pos=pos, mapq=mapq, seq=seq, qual=qual, cigar=cigar,
                 mate_ref_id=-1, mate_pos=-1, tlen=0, aux=aux, hap=hap))
             serial += 1
-    reads = _pack_reads(rows)
+    reads = _pack_reads(rows)  # sorts `rows` in place, as `read_haps`
     return dict(contigs=list(contig_lengths), reference=reference,
                 variants=variants, reads=reads,
                 read_haps=np.array([r["hap"] for r in rows], np.int8),
@@ -513,15 +513,15 @@ def _shift_indel_right(rng, row: dict, ref: np.ndarray) -> bool:
     return True
 
 
-def add_read_options(sample: dict, seed: int, oq: bool = True,
-                     flow: bool = True, shifted_indels: int = 0) -> dict:
+def add_read_options(sample: dict, seed: int,
+                     shifted_indels: int = 0) -> dict:
     """The sample with the short-read options' aux tags, drawn from
-    `seed` only: with `oq` an OQ tag on a third of the reads, differing
-    from QUAL, a tenth of them one base short or long (those keep their
-    QUAL); with `flow` Ultima's tp (B:c, -1/0/1 per base, a few of the
-    wrong length) and t0 (Z, phred + 33) on most reads; and
-    `shifted_indels` all-match reads rewritten to carry a one-base
-    indel at the right end of a homopolymer. Returns a new sample."""
+    `seed` only: an OQ tag on a third of the reads, differing from QUAL,
+    a tenth of them one base short or long (those keep their QUAL);
+    Ultima's tp (B:c, -1/0/1 per base, a few of the wrong length) and t0
+    (Z, phred + 33) on most reads; and `shifted_indels` all-match reads
+    rewritten to carry a one-base indel at the right end of a
+    homopolymer. Returns a new sample."""
     rng = np.random.RandomState(seed)
     names = [n for n, _ in sample["contigs"]]
     rows = _unpack_reads(sample["reads"])
@@ -537,7 +537,7 @@ def add_read_options(sample: dict, seed: int, oq: bool = True,
             rng, row, sample["reference"][names[row["ref_id"]]])
     for row in rows:
         n = len(row["seq"])
-        if oq and rng.rand() < 0.33:
+        if rng.rand() < 0.33:
             quals = np.clip(row["qual"].astype(np.int64)
                             + rng.randint(-12, 13, n), 0, 60)
             if rng.rand() < 0.1:
@@ -545,7 +545,7 @@ def add_read_options(sample: dict, seed: int, oq: bool = True,
                     np.append(quals, 30)
             row["aux"] += _aux_z(b"OQ", (quals + 33).astype(
                 np.uint8).tobytes())
-        if flow and rng.rand() < 0.8:
+        if rng.rand() < 0.8:
             tp = rng.choice(np.array([-1, 0, 0, 0, 0, 1], np.int8), n)
             if rng.rand() < 0.05:
                 tp = tp[:-2]
@@ -572,10 +572,9 @@ def _mm_item(code: bytes, positions: List[int], marked: Dict[int, int],
     return text, probs
 
 
-def add_methylation(sample: dict, seed: int,
-                    specific_fraction: float = 0.4) -> dict:
+def add_methylation(sample: dict, seed: int) -> dict:
     """The long-read sample with MM/ML tags, drawn from `seed` only.
-    Every CpG gets a level per haplotype: at `specific_fraction` of them
+    Every CpG gets a level per haplotype: at 40% of them
     (and at every C>T SNP of `cpg_snps`) one haplotype is methylated
     (ML 200-250) and the other not (5-40), at half the rest both are
     methylated, at the others neither. Forward reads carry the mark on
@@ -594,10 +593,10 @@ def add_methylation(sample: dict, seed: int,
         table = {}
         for p in cpg.tolist():
             u = rng.rand()
-            if p in snps or u < specific_fraction:
+            if p in snps or u < 0.4:
                 high = int(rng.randint(2))
                 table[p] = (high, 1 - high)
-            elif u < specific_fraction + (1 - specific_fraction) / 2:
+            elif u < 0.7:
                 table[p] = (1, 1)
             else:
                 table[p] = (0, 0)

@@ -43,7 +43,6 @@ from deepvariant_tpu_torch.phasing import methylation_aware_phasing as tmap
 from deepvariant_tpu_torch.scripts import make_examples as tcli
 from deepvariant_tpu_torch.scripts import run_deepvariant as rd
 from torch_port_util import (
-    assert_batches_equal,
     assert_planned_equal,
     build_region,
     methylated_long_sample,
