@@ -152,7 +152,27 @@ Phases:
      methylation fields differ from the staged VCF's, or if the paint
      kernel was launched on this route (the methylation channels are the
      host painter's, as in the JAX package).
- 13. One JSON line per the kernels, the card's name and power limit, and
+ 13. CRAM input and training mode. Route A: phase 11's sample written as
+     a CRAM (rANS order 1, the FASTA as reference, a .crai) by
+     `testing/cram_writer.py`; one shard in this process from the CRAM
+     (the CRAM decode's reads/s and share of the shard), whose plans and
+     examples must equal phase 11's from the BAM bit for bit and whose
+     host-painted images must equal the CUDA plan form's; then
+     `run_deepvariant --reads x.cram` staged (2 shards) and `--stream`
+     with the device encoder, each to a VCF and a gVCF with phase 11's
+     checks; the staged VCF and gVCF may differ from phase 11's BAM
+     route only where bfloat16 moved a rounded probability (counted and
+     printed). Route B: a truth VCF and confident regions from the
+     sample's planted variants (`synthetic.write_truth_inputs`); the
+     make_examples CLI with `--mode training` and the default haplotype
+     labeler on the CRAM and on the BAM: the examples and
+     `.labeling_metrics.json` must be equal byte for byte; the runner in
+     this process with a plan sink on the same options: its labeled
+     plans, painted by the CUDA plan form, must equal the labeled
+     examples image by image and label by label; labeled_examples_to_vcf
+     turns the examples into a VCF. Prints TP/FP/FN sites, the labeler's
+     seconds per kb and the launches of both routes.
+ 14. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
@@ -161,7 +181,9 @@ again around the stream of each of phases 7, 8, 9 and 10 (in phases 9
 and 10 around run_streaming_pipeline: the stream, then stage 3, which
 paints nothing), around each `--stream` run of phase 11 (the
 host-encode one must launch none), around route A's stream in phase 12
-and around the whole of route B (which must launch none); the
+and around the whole of route B (which must launch none), and in phase
+13 around route A's `--stream` run and around the painting of route B's
+labeled plans; the
 comparisons of phase 2 and of the checks after the paths are not
 counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
@@ -1313,13 +1335,21 @@ def phase_stream(tmp: str, model, device, card: str):
 
 
 def plans_equal(a, b) -> bool:
-    """Two lists of PlannedExamples hold the same loci and the same
-    tensors."""
-    if [locus_key(p.variant, p.alt_indices) for p in a] != \
-            [locus_key(p.variant, p.alt_indices) for p in b]:
+    """Two lists of PlannedExamples equal bit for bit: the variants'
+    bytes, the alt indices, the labels, and every tensor of the plans
+    with its dtype and shape."""
+    if len(a) != len(b):
         return False
-    return all(np.array_equal(x.plan[k], y.plan[k])
-               for x, y in zip(a, b) for k in x.plan)
+    for x, y in zip(a, b):
+        if variant_bytes(x.variant) != variant_bytes(y.variant) or \
+                x.alt_indices != y.alt_indices or x.label != y.label or \
+                list(x.plan) != list(y.plan):
+            return False
+        for k in x.plan:
+            if x.plan[k].dtype != y.plan[k].dtype or \
+                    not np.array_equal(x.plan[k], y.plan[k]):
+                return False
+    return True
 
 
 def phase_realigned_stream(tmp: str, model, device, card: str):
@@ -2099,7 +2129,8 @@ def phase_run_deepvariant(tmp: str, device, card: str):
     a BAM and a FASTA to a VCF and a gVCF, staged (2 shards) and
     streamed with each encoder; the host painter held bit-exact against
     the CUDA plan form. Returns (numbers, the kernels-line entry of the
-    device-encode stream with its launches)."""
+    device-encode stream with its launches, the BAM route for phase
+    13)."""
     from deepvariant_tpu_torch.calling.call_variants import read_cvos
     from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
     from deepvariant_tpu_torch.make_examples.core import MakeExamplesOptions
@@ -2232,6 +2263,12 @@ def phase_run_deepvariant(tmp: str, device, card: str):
     entry = from_files_entry("pileup_paint_plan_run_deepvariant_stream",
                              predictor, [p.plan for p in plans], tag, card)
     entry["launches"] = launches
+    # What phase 13 holds the CRAM route against: the BAM route's sample,
+    # files, in-process shard and staged outputs.
+    bam_route = dict(sample=sample, paths=paths, model=model,
+                     checkpoint=checkpoint, records=records, plans=plans,
+                     staged_vcf=staged_vcf, staged_gvcf=staged_gvcf,
+                     staged_cvos=staged_cvos)
     numbers = {f"run_dv_{k}": v for k, v in {
         **stages, **checked, **tiled,
         "examples": len(records), "host_paint_ms_per_example": paint_ms,
@@ -2243,7 +2280,19 @@ def phase_run_deepvariant(tmp: str, device, card: str):
         "host_stream_examples_per_s": len(host_cvos) / host_s,
         "vcf_records_moved_by_bf16": differ,
         "plan_form_launches": launches}.items()}
-    return numbers, entry
+    return numbers, entry, bam_route
+
+
+def quiet(main, argv, tag: str) -> None:
+    """A command line's `main` in this process, which must return 0; its
+    standard output is printed under `tag`."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    for line in buf.getvalue().strip().splitlines():
+        print(f"[{tag}] {line}")
+    if rc != 0:
+        raise AssertionError(f"{tag}: exited {rc}")
 
 
 def wrap(owner, name: str, tally: dict, key: str, count=None):
@@ -2304,15 +2353,6 @@ def phase_read_options(tmp: str, device, card: str):
 
     cpus = os.cpu_count()
     phase_start = time.time()
-
-    def quiet(main, argv, tag):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = main(argv)
-        for line in buf.getvalue().strip().splitlines():
-            print(f"[{tag}] {line}")
-        if rc != 0:
-            raise AssertionError(f"{tag}: exited {rc}")
 
     # -- route A: normalization and OQ, the plans painted by the kernel --
     tag = "read-options"
@@ -2638,6 +2678,286 @@ def phase_read_options(tmp: str, device, card: str):
     return numbers, entry
 
 
+def phase_cram_training(tmp: str, device, card: str, bam_route: dict):
+    """Phase 13: CRAM input and training mode. Route A: phase 11's
+    sample written as a CRAM (rANS order 1, the FASTA as reference, a
+    .crai) and run as phase 11 ran its BAM: the in-process shard's plans
+    and examples equal the BAM's, every host-painted image equals the
+    CUDA plan form's, then `run_deepvariant --reads x.cram` staged and
+    `--stream` (device encoder) to a VCF and a gVCF, apart from the BAM
+    route's only where bfloat16 moved a rounded probability. Route B: the
+    make_examples CLI in training mode on the CRAM and on the BAM (truth
+    VCF, confident regions, the haplotype labeler) writes the same
+    examples; the runner's labeled plans of the same options are painted
+    by the CUDA plan form, equal to the labeled examples image by image
+    and label by label; labeled_examples_to_vcf writes their VCF.
+    Returns (numbers, the kernels-line entries of route A's stream and of
+    route B's labeled plans, with their launches)."""
+    import torch
+
+    from deepvariant_tpu_torch.calling.call_variants import read_cvos
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.io import examples as example_codec
+    from deepvariant_tpu_torch.io.cram import CramBatchReader
+    from deepvariant_tpu_torch.labeler import labeled_examples_to_vcf
+    from deepvariant_tpu_torch.labeler.haplotype_labeler import (
+        HaplotypeLabeler,
+    )
+    from deepvariant_tpu_torch.make_examples.core import (
+        MakeExamplesOptions,
+        make_examples_runner,
+    )
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.scripts import make_examples as me_cli
+    from deepvariant_tpu_torch.testing import cram_writer, synthetic
+
+    cpus = os.cpu_count()
+    phase_start = time.time()
+    tag = "cram"
+    directory = os.path.join(tmp, tag)
+    os.makedirs(directory)
+    sample, paths = bam_route["sample"], bam_route["paths"]
+    kb = sum(n for _, n in sample["contigs"]) / 1000
+    n_records = len(sample["reads"]["name"])
+    start = time.time()
+    cram = cram_writer.write_cram(sample, os.path.join(directory,
+                                                       "reads.cram"))
+    print(f"[{tag}] wrote {n_records} reads as CRAM 3.0 (rANS order 1, the "
+          f"FASTA as reference, .crai) in {time.time() - start:.1f} s: "
+          f"{os.path.getsize(cram)} bytes, the BAM "
+          f"{os.path.getsize(paths['reads'])}")
+
+    # -- route A: the CRAM through run_deepvariant, the plans on the card --
+    # The CRAM decode, timed where a worker pays it: the whole file at
+    # its first query (the later calls return the decoded reads).
+    decode = {}
+    restore = wrap(CramBatchReader, "_all_reads", decode, "decode")
+    try:
+        in_process = apply_model_preset(MakeExamplesOptions(
+            reads_filename=cram, ref_filename=paths["ref"],
+            examples_filename=os.path.join(directory, "in-process.tfrecord")),
+            "WGS")
+        records, plans, paint_ms, runner_s = examples_beside_plans(
+            in_process, tag, card)
+    finally:
+        restore()
+    decode_rate = n_records / decode["decode_s"]
+    decode_share = decode["decode_s"] / runner_s
+    print(f"[{tag}] CRAM decode: {n_records} records in "
+          f"{decode['decode_s']:.3f} s, {decode_rate:.1f} reads/s, "
+          f"{decode_share:.1%} of the in-process shard's {runner_s:.2f} s; "
+          f"host CPUs {cpus}, beside {card}")
+    same_plans = plans_equal(plans, bam_route["plans"])
+    same_examples = records == bam_route["records"]
+    print(f"[{tag}] the in-process shard from the CRAM: {len(plans)} plans "
+          f"== the BAM's, bit for bit: {same_plans}; {len(records)} "
+          f"examples == the BAM's, byte for byte: {same_examples}")
+    if not (same_plans and same_examples):
+        raise AssertionError(f"{tag}: the CRAM's plans or examples differ "
+                             "from the BAM's")
+    model, checkpoint = bam_route["model"], bam_route["checkpoint"]
+    predictor = PlanPredictor(model, in_process.pileup_options,
+                              batch_size=BATCH, device=device)
+    check_host_images(predictor, records, plans, tag)
+
+    def argv(name, *more):
+        return ["--ref", paths["ref"], "--reads", cram,
+                "--output_vcf", os.path.join(directory, f"{name}.vcf.gz"),
+                "--output_gvcf", os.path.join(directory, f"{name}.g.vcf.gz"),
+                "--checkpoint", checkpoint, "--batch_size", str(BATCH),
+                "--num_shards", str(STREAM_WORKERS),
+                "--intermediate_results_dir", os.path.join(directory, name),
+                *more]
+
+    def outputs(name):
+        return (os.path.join(directory, f"{name}.vcf.gz"),
+                os.path.join(directory, f"{name}.g.vcf.gz"))
+
+    # Staged: make_examples in 2 spawned shards on the CRAM.
+    _, staged_s, stages = run_deepvariant_cli(argv("staged"),
+                                              tag + " staged", card)
+    staged_dir = os.path.join(directory, "staged")
+    staged_records = example_records(os.path.join(
+        staged_dir, f"make_examples.tfrecord@{STREAM_WORKERS}.gz"))
+    if sorted(staged_records) != sorted(records):
+        raise AssertionError(f"{tag}: the staged shards' examples differ "
+                             "from the in-process shard's")
+    staged_cvos = list(read_cvos(os.path.join(
+        staged_dir, "call_variants_output.tfrecord.gz")))
+    staged_vcf, staged_gvcf = outputs("staged")
+    check_vcf(staged_vcf, staged_cvos, paths["ref"], "default",
+              tag + " staged", card)
+    check_gvcf(staged_gvcf, staged_vcf, paths["ref"], tag + " staged", card)
+    # The CRAM route against phase 11's BAM route.
+    moved_vcf = vcfs_agree(staged_vcf, staged_cvos, bam_route["staged_vcf"],
+                           bam_route["staged_cvos"],
+                           tag + " staged VCF vs the BAM's")
+    moved_gvcf = vcfs_agree(staged_gvcf, staged_cvos,
+                            bam_route["staged_gvcf"],
+                            bam_route["staged_cvos"],
+                            tag + " staged gVCF vs the BAM's")
+    # Streamed, the plans painted on the card.
+    seen, restore = record_stream_cvos()
+    pp.paint_pileup.launches = 0
+    try:
+        text, stream_s, _ = run_deepvariant_cli(
+            argv("stream", "--stream"), tag + " stream", card)
+    finally:
+        restore()
+    launches = pp.paint_pileup.launches
+    (stream_cvos, _), = seen
+    batches = -(-len(stream_cvos) // BATCH)
+    if "encoder=device" not in text or launches != batches or \
+            not launches or len(stream_cvos) != len(staged_cvos):
+        raise AssertionError(
+            f"{tag}: the device-encode stream made {len(stream_cvos)} CVOs "
+            f"with {launches} launches of the plan form for {batches} "
+            "batches")
+    stream_vcf, stream_gvcf = outputs("stream")
+    check_vcf(stream_vcf, stream_cvos, paths["ref"], "default",
+              tag + " stream", card)
+    check_gvcf(stream_gvcf, stream_vcf, paths["ref"], tag + " stream", card)
+    moved_stream = vcfs_agree(stream_vcf, stream_cvos, staged_vcf,
+                              staged_cvos, tag + " streamed VCF vs staged")
+    print(f"[{tag}] CRAM to VCF and gVCF: staged {len(staged_cvos) / staged_s:.2f}"
+          f", streamed (device encoder) {len(stream_cvos) / stream_s:.2f} "
+          f"examples/s; records apart from the BAM route's: VCF {moved_vcf},"
+          f" gVCF {moved_gvcf} (where bfloat16 moved a rounded GL); the plan"
+          f" form launched {launches} times on the stream; {card}; host CPUs"
+          f" {cpus}")
+    entry_a = from_files_entry("pileup_paint_plan_cram_stream", predictor,
+                               [p.plan for p in plans], tag, card)
+    entry_a["launches"] = launches
+
+    # -- route B: training mode on the CRAM, the labeled plans on the card --
+    btag = "training"
+    truth = synthetic.write_truth_inputs(sample, directory, seed=SEED + 13)
+    flags = ["--mode", "training", "--ref", paths["ref"], "--model_preset",
+             "WGS", "--truth_variants", truth["truth"],
+             "--confident_regions", truth["confident"]]
+    labeling = {"s": 0.0, "calls": 0}
+    plain_label = HaplotypeLabeler.label_variants
+
+    def timed_label(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = list(plain_label(self, *args, **kwargs))
+        labeling["s"] += time.perf_counter() - t0
+        labeling["calls"] += 1
+        return out
+
+    examples = {}
+    HaplotypeLabeler.label_variants = timed_label
+    try:
+        for name, reads in (("cram", cram), ("bam", paths["reads"])):
+            examples[name] = os.path.join(directory, f"train-{name}.tfrecord")
+            start = time.time()
+            quiet(me_cli.main, flags + ["--reads", reads, "--examples",
+                                        examples[name]],
+                  f"{btag} make_examples {name}")
+            if name == "cram":
+                cli_s = time.time() - start
+                label_s = labeling["s"]
+    finally:
+        HaplotypeLabeler.label_variants = plain_label
+    blobs = {}
+    for name, path in examples.items():
+        with open(path, "rb") as f, \
+                open(path + ".labeling_metrics.json") as g:
+            blobs[name] = (f.read(), g.read())
+    metrics = json.loads(blobs["cram"][1])
+    if blobs["cram"] != blobs["bam"]:
+        raise AssertionError(f"{btag}: the CLI's labeled examples from the "
+                             "CRAM differ from the BAM's")
+    labeled_records = example_records(examples["cram"])
+    # The runner with a plan sink on the same options: the labeled plans.
+    args = me_cli.build_parser().parse_args(flags + [
+        "--reads", cram, "--examples", "unused"])
+    options = me_cli.resolved_options_from_args(args)
+    options.examples_filename = ""
+    labeled = []
+    make_examples_runner(options, plan_sink=labeled.append)
+    if len(labeled) != len(labeled_records) or len(labeled) < 8:
+        raise AssertionError(f"{btag}: {len(labeled)} labeled plans, "
+                             f"{len(labeled_records)} labeled examples")
+    train_predictor = PlanPredictor(model, options.pileup_options,
+                                    batch_size=BATCH, device=device)
+    # The path: the labeled plans painted on the card, batch by batch.
+    pp.paint_pileup.launches = 0
+    images = []
+    with torch.inference_mode():
+        for i in range(0, len(labeled), BATCH):
+            images.append(train_predictor.encode(
+                [p.plan for p in labeled[i:i + BATCH]]).cpu().numpy())
+    train_launches = pp.paint_pileup.launches
+    images = np.concatenate(images)
+    differ = 0
+    labels = []
+    for k, (planned, buf) in enumerate(zip(labeled, labeled_records)):
+        ex = example_codec.parse_example(buf)
+        if locus_key(ex.variant, ex.alt_allele_indices) != \
+                locus_key(planned.variant, planned.alt_indices) or \
+                ex.label != planned.label or ex.label is None:
+            raise AssertionError(f"{btag}: example {k} and its plan differ "
+                                 "in locus or label")
+        differ += not np.array_equal(ex.image, images[k])
+        labels.append(ex.label)
+    print(f"[{btag}] {len(labeled)} labeled plans painted by the CUDA plan "
+          f"form in {train_launches} launches; images == the labeled "
+          f"examples' bit for bit: {differ == 0} ({differ} differ); labels "
+          f"equal; labels 0/1/2: {labels.count(0)}/{labels.count(1)}/"
+          f"{labels.count(2)}")
+    if differ or train_launches != -(-len(labeled) // BATCH):
+        raise AssertionError(f"{btag}: {differ} images differ, "
+                             f"{train_launches} launches")
+    entry_b = from_files_entry("pileup_paint_plan_training_labeled",
+                               train_predictor, [p.plan for p in labeled],
+                               btag, card)
+    entry_b["launches"] = train_launches
+    # The labeled examples as a VCF.
+    vcf = os.path.join(directory, "labeled.vcf.gz")
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = labeled_examples_to_vcf.main([
+            "--examples", examples["cram"], "--ref", paths["ref"],
+            "--output_vcf", vcf])
+    records_vcf = vcf_records(vcf)
+    gts = {line.split("\t")[9].split(":")[0] for line in records_vcf}
+    if rc != 0 or not records_vcf or not gts & {"0/1", "1/1", "1/2"}:
+        raise AssertionError(f"{btag}: labeled_examples_to_vcf exited {rc} "
+                             f"with {len(records_vcf)} records, GTs {gts}")
+    tp, fp, fn = (metrics[f"n_{k}_sites"] for k in (
+        "true_positive", "false_positive", "false_negative"))
+    print(f"[{btag}] labeling metrics: TP {tp}, FP {fp}, FN {fn} sites; the "
+          f"haplotype labeler {label_s:.3f} s ({label_s / kb:.5f} s per kb, "
+          f"{label_s / cli_s:.1%} of the CLI's {cli_s:.2f} s); "
+          f"labeled_examples_to_vcf: {len(records_vcf)} records, GTs "
+          f"{sorted(gts)}; the CLI's examples from the CRAM == the BAM's, "
+          f"byte for byte; host CPUs {cpus}, beside {card}")
+    if min(tp, fp, fn) <= 0:
+        raise AssertionError(f"{btag}: TP {tp}, FP {fp}, FN {fn}")
+    numbers = {
+        "cram_records": n_records,
+        "cram_decode_reads_per_s": decode_rate,
+        "cram_decode_share_of_shard": decode_share,
+        "cram_examples": len(records),
+        "cram_staged_s": staged_s, "cram_stream_s": stream_s,
+        "cram_stage1_s": stages.get("stage1_s"),
+        "cram_vcf_records_apart_from_bam": moved_vcf,
+        "cram_gvcf_records_apart_from_bam": moved_gvcf,
+        "cram_stream_vcf_records_moved_by_bf16": moved_stream,
+        "cram_plan_form_launches": launches,
+        "training_examples": len(labeled),
+        "training_tp_sites": tp, "training_fp_sites": fp,
+        "training_fn_sites": fn,
+        "training_labeler_s_per_kb": label_s / kb,
+        "training_plan_form_launches": train_launches,
+        "training_labeled_vcf_records": len(records_vcf),
+        "phase13_s": time.time() - phase_start}
+    print(f"[{tag}] phase 13 (routes A and B) {numbers['phase13_s']:.1f} s; "
+          f"{card}")
+    return numbers, [entry_a, entry_b]
+
+
 def main() -> int:
     import torch
 
@@ -2711,7 +3031,7 @@ def main() -> int:
         summary.update(af_numbers)
         kernels.append(af_kernel)
         # The one-step command, staged and streamed.
-        run_dv_numbers, run_dv_kernel = phase_run_deepvariant(
+        run_dv_numbers, run_dv_kernel, bam_route = phase_run_deepvariant(
             tmp, device, card)
         summary.update(run_dv_numbers)
         kernels.append(run_dv_kernel)
@@ -2720,6 +3040,13 @@ def main() -> int:
         read_numbers, read_kernel = phase_read_options(tmp, device, card)
         summary.update(read_numbers)
         kernels.append(read_kernel)
+        # CRAM input and training mode: phase 11's sample as a CRAM to a
+        # VCF, and its labeled plans painted on the card.
+        cram_numbers, cram_kernels = phase_cram_training(
+            tmp, device, card, bam_route)
+        del bam_route
+        summary.update(cram_numbers)
+        kernels.extend(cram_kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)

@@ -1,16 +1,18 @@
 """Stage 1 orchestration: regions -> reads -> candidates -> examples.
 
-The port's copy of the calling mode of one sample of
+The port's copy of the calling and training modes of one sample of
 `deepvariant_tpu.make_examples.core` (the reference's
 make_examples_core.py):
   * region partitioning + round-robin task sharding
     (regions_to_process, make_examples_core.py:799-889);
-  * per-region pipeline: BAM query with reservoir downsampling
+  * per-region pipeline: BAM or CRAM query with reservoir downsampling
     (region_reads_norealign, :2408-2449) -> optional local-assembly
     realignment (:2479) -> allele counting + very-sensitive calling or
     the proposed-VCF importer + gVCF (candidates_in_region, :2832-2990)
-    -> exclude and population-AF hooks -> one host-painted tf.Example or
-    one device-encode plan per (candidate, alt combination);
+    -> exclude and population-AF hooks -> in training mode, the
+    labeler (labeler/) and the class downsampling -> one host-painted
+    tf.Example or one device-encode plan per (candidate, alt
+    combination), labeled in training mode;
   * OutputsWriter: the examples TFRecord (or the example sink), the plan
     sink, the candidates and gVCF TFRecords (or the gVCF sink), and the
     example_info.json data contract (:3755-3774);
@@ -23,17 +25,19 @@ paints the plans and runs the CNN (calling.plan_predictor).
 `MakeExamplesOptions` has every field of the JAX package's, so options
 print and pickle alike, but an option whose code is not ported yet makes
 `refuse_unported_options` raise NotImplementedError, naming the
-ROADMAP.md item that brings it: the small model, training mode and CRAM
-input. The realigner (realign/), trimmed reads, every alt-aligned pileup
-mode, direct read phasing (phasing/direct_phasing.py, with its padded
-region, its TSVs and the candidates' phase info), gVCF records, the
-proposed, population and exclude VCFs, and the read-side options run, on
-the host like the rest of this module: read normalization
-(normalize.py), original qualities (OQ), the aux-driven channels (MM/ML
-methylation and 6mA, Ultima's tp/t0), methylation calling (MF/MD and the
-'.'-alt methylated reference sites), methylation-aware phasing (MI,
-phasing/methylation_aware_phasing.py) and the candidate sweep
-(candidate_sweep_runner, partition_by_candidates).
+ROADMAP.md item that brings it: the small model and de novo regions.
+CRAM input (io/cram.py), training mode with every labeler and its
+`.labeling_metrics.json`, the realigner (realign/), trimmed reads, every
+alt-aligned pileup mode, direct read phasing (phasing/direct_phasing.py,
+with its padded region, its TSVs and the candidates' phase info), gVCF
+records, the proposed, population and exclude VCFs, and the read-side
+options run, on the host like the rest of this module: read
+normalization (normalize.py), original qualities (OQ), the aux-driven
+channels (MM/ML methylation and 6mA, Ultima's tp/t0), methylation
+calling (MF/MD and the '.'-alt methylated reference sites),
+methylation-aware phasing (MI, phasing/methylation_aware_phasing.py)
+and the candidate sweep (candidate_sweep_runner,
+partition_by_candidates).
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from deepvariant_tpu_torch.io.bam import (
     ReadBatch,
     ReadRequirements,
 )
+from deepvariant_tpu_torch.io.cram import CramBatchReader
 from deepvariant_tpu_torch.io.fasta import FastaReader
 from deepvariant_tpu_torch.io.tfrecord import TFRecordWriter
 from deepvariant_tpu_torch.make_examples.allele_counter import (
@@ -550,21 +555,18 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
         raise NotImplementedError(
             f"{what} is not ported yet; {queue} ({item})")
 
-    if o.mode == "training":
-        refuse("training mode (labelers, truth variants)",
-               "training mode and the labelers")
-    if o.reads_filename.endswith(".cram"):
-        refuse("CRAM input", "CRAM reading")
     if o.call_small_model_examples or o.write_small_model_examples or \
             o.trained_small_model_path or o.small_model_cvo_filename or \
             o.small_model_examples_filename:
         refuse("the small model", "small_model",
                queue="ROADMAP.md Queue 1 item 6")
-    if o.truth_variants_filename or o.confident_regions_filename or \
-            o.downsample_classes or o.denovo_regions:
-        refuse("training inputs (truth variants, confident regions, "
-               "class downsampling, de novo regions)",
-               "training mode and the labelers")
+    if o.denovo_regions:
+        # The JAX package accepts --denovo_regions and reads it nowhere:
+        # no denovo_label is ever written.
+        raise NotImplementedError(
+            "de novo regions (--denovo_regions, the examples' "
+            "denovo_label) are written by neither package; "
+            f"{_QUEUE} (de novo labels)")
 
 
 @dataclasses.dataclass
@@ -608,6 +610,17 @@ class RegionProcessor:
         )
         if not options.reads_filename:
             self.bam_reader = None
+        elif options.reads_filename.endswith(".cram"):
+            # --use_ref_for_cram is parsed and changes nothing, as in
+            # the JAX package: a slice that embeds its reference is
+            # decoded against it, one that does not against --ref.
+            self.bam_reader = CramBatchReader(
+                options.reads_filename,
+                ref_reader=self.ref_reader,
+                requirements=requirements,
+                downsample_fraction=options.downsample_fraction,
+                random_seed=options.random_seed,
+            )
         else:
             self.bam_reader = BamReader(
                 options.reads_filename, requirements=requirements,
@@ -677,6 +690,10 @@ class RegionProcessor:
         # Fused-stream gVCF: compute ref blocks even with no gvcf
         # TFRecord (records flow to the stream gvcf_sink instead).
         self.force_gvcfs = False
+        # Training mode: the labeler (set by make_examples_runner) and
+        # the --downsample_classes draws.
+        self.labeler = None
+        self._downsample_rng = np.random.RandomState(options.random_seed)
         # --select_variant_types filter set (make_examples_core.py
         # select_variants_types semantics): names among
         # {snps, indels, multi-allelics, all}.
@@ -1216,21 +1233,52 @@ class RegionProcessor:
                 if region.start <= c.variant.start < region.end
             ]
 
+        # Training mode: label all candidates of the region at once (the
+        # haplotype labeler works on variant groups, reference
+        # make_examples_core.py label_variants flow).
+        labels_by_index: Dict[int, object] = {}
+        if self.labeler is not None and candidates:
+            labels = list(self.labeler.label_variants(
+                [c.variant for c in candidates], region
+            ))
+            labels_by_index = dict(enumerate(labels))
+
         t0 = time.perf_counter()
         examples: List[bytes] = []
         plans: List = []
         build_images = not self.options.skip_pileup_image_generation
-        for dv_call in candidates if build_images else ():
+        downsample = self.options.downsample_classes
+        for idx, dv_call in enumerate(
+            candidates if build_images else ()
+        ):
+            label = labels_by_index.get(idx)
+            if self.options.mode == "training" and (
+                label is None or not label.is_confident
+            ):
+                continue
+            if downsample and label is not None:
+                # --downsample_classes: per-class emission probability.
+                cls = label.label_for_alt_alleles(
+                    list(range(len(dv_call.variant.alternate_bases))))
+                keep_p = downsample[cls] if cls < len(downsample) else 1.0
+                if self._downsample_rng.random_sample() >= keep_p:
+                    continue
+            label_fn = None
+            if label is not None:
+                label_fn = (
+                    lambda variant, alt_indices, _label=label:
+                    _label.label_for_alt_alleles(alt_indices)
+                )
             if self.plan_mode:
                 plans.extend(
                     self.examples_builder.build_plans_for_candidate(
-                        dv_call, batch
+                        dv_call, batch, label_fn=label_fn,
                     )
                 )
             else:
                 for built in (
                     self.examples_builder.build_examples_for_candidate(
-                        dv_call, batch
+                        dv_call, batch, label_fn=label_fn,
                     )
                 ):
                     examples.append(built.encoded)
@@ -1513,10 +1561,26 @@ def make_examples_runner(
         )
         options.variant_caller_options.sample_name = options.sample_name
         processor.caller.options.sample_name = options.sample_name
+    if options.mode == "training":
+        from deepvariant_tpu_torch.labeler.variant_labeler import (
+            make_labeler,
+        )
+
+        processor.labeler = make_labeler(options, processor.ref_reader)
     contigs = processor.ref_reader.contigs
     if processor.bam_reader is not None:
+        vcf_names = None
+        if options.mode == "training" and \
+                options.truth_variants_filename:
+            from deepvariant_tpu_torch.io.vcf import VcfReader
+
+            vcf_names = [
+                c.name for c in VcfReader(
+                    options.truth_variants_filename
+                ).contigs
+            ] or None
         contigs = ensure_consistent_contigs(
-            contigs, processor.bam_reader.header.contigs, None
+            contigs, processor.bam_reader.header.contigs, vcf_names
         )
     calling_regions = calling_regions_from_options(options, contigs)
     if options.discard_non_dna_regions and not options.regions:
@@ -1631,6 +1695,14 @@ def make_examples_runner(
             f.write("fragment_name\tphase\tregion_order\n")
             for key, read_phase, region_n in processor.read_phase_rows:
                 f.write(f"{key}\t{read_phase}\t{region_n}\n")
+    # Labeling-metrics sidecar (run_info.labeling_metrics,
+    # make_examples_core.py:3734-3740): JSON of summable counts. Only
+    # the haplotype-matching labelers keep metrics.
+    metrics = getattr(processor.labeler, "metrics", None)
+    if metrics is not None and options.examples_filename:
+        metrics_path = writer.examples_path + ".labeling_metrics.json"
+        with open(metrics_path, "w") as f:
+            json.dump(metrics.as_dict(), f, indent=2)
     if options.output_sitelist and options.examples_filename:
         # --output_sitelist: candidate positions next to the examples
         # (make_examples_core.py sitelist output).

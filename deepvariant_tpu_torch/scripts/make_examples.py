@@ -11,10 +11,12 @@ read-side options run as in the JAX package (`--normalize_reads`,
 `--enable_methylation_aware_phasing`, `--parse_sam_aux_fields` with
 MM/ML, the aux-driven channels of `--channel_list`), and so does
 `--mode candidate_sweep`, which, as there, runs the calling runner (the
-positions file is `core.candidate_sweep_runner`'s). Options whose code
-the port does not have yet (training mode, CRAM, the small model) raise
-NotImplementedError through `refuse_unported_options`, naming their
-ROADMAP.md item. `--stream_examples`/`--shm_*` are refused as in the
+positions file is `core.candidate_sweep_runner`'s). `--reads` takes a
+BAM or a CRAM, and `--mode training` labels the examples from
+`--truth_variants` and `--confident_regions` with any
+`--labeler_algorithm`. Options whose code the port does not have yet
+(the small model, `--denovo_regions`) raise NotImplementedError through
+`refuse_unported_options`, naming their ROADMAP.md item. `--stream_examples`/`--shm_*` are refused as in the
 JAX package (the fused stream replaces them), and `--hts_block_size` is
 accepted and does nothing (the IO layer reads whole BGZF blocks).
 

@@ -26,6 +26,10 @@ length), Ultima's tp and t0, and indels written right-shifted in
 homopolymers for `--normalize_reads`; MM/ML 5mC at CpGs, with
 haplotype-specific levels at a share of them, and some 6mA.
 
+`write_truth_inputs` writes the inputs of training mode: a truth VCF of
+the planted variants and their genotypes (with a few left out and a few
+added that no read carries) and a BED of confident regions.
+
 `write_vcf_inputs` writes the VCF inputs of stage 1 from a sample's
 planted variants: a population VCF with an AF per alt (for the
 allele_frequency channel), a VCF of proposed variants (for the
@@ -852,3 +856,87 @@ def write_vcf_inputs(sample: dict, directory: str, seed: int = 0,
     if exclude:
         out["exclude"] = write("exclude.vcf.gz", excludes, True)
     return out
+
+
+def _truth_genotype(v: dict) -> List[int]:
+    if len(v["alleles"]) == 2:
+        return [1, 2]
+    return [0, 1] if len(v["haps"]) == 1 else [1, 1]
+
+
+def write_truth_inputs(sample: dict, directory: str,
+                       seed: int = 0) -> Dict[str, str]:
+    """Write `truth.vcf.gz` (+ `.tbi`) and `confident.bed` for training
+    mode and return their paths.
+
+    The truth holds the planted variants with their genotypes and an
+    INFO `type` (class1 for a SNP, class2 otherwise, for the customized
+    classes labeler). A tenth of them, and one more per contig, are left
+    out, so their candidates are false positives; one is written with a
+    RefCall filter, which the labelers skip; and two SNPs per contig
+    that no read carries are added 12 bases after planted variants, so
+    the labelers see false negatives. The confident regions are each
+    contig but one stretch that holds two planted variants. The choices
+    come from `seed`, not from the sample's own draws."""
+    from deepvariant_tpu_torch.core.types import (
+        ContigInfo,
+        Variant,
+        VariantCall,
+    )
+    from deepvariant_tpu_torch.io.tabix import build_index
+    from deepvariant_tpu_torch.io.vcf import VcfHeader, VcfWriter
+
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    contigs = [ContigInfo(n, length, i)
+               for i, (n, length) in enumerate(sample["contigs"])]
+    records = []
+    bed = []
+    filtered = False
+    for name, length in sample["contigs"]:
+        ref = sample["reference"][name]
+        planted = sample["variants"][name]
+        k = len(planted) // 3   # planted[k] and [k + 1]: not confident
+        left_out = set(np.flatnonzero(rng.rand(len(planted)) < 0.1))
+        left_out.add(int(rng.choice(
+            [i for i in range(len(planted)) if i not in (k, k + 1)])))
+        for i, v in enumerate(planted):
+            if i in left_out:
+                continue
+            ref_bases, alts = _vcf_alleles(ref, v)
+            kind = "class1" if all(a[0] == "snp" for a in v["alleles"]) \
+                else "class2"
+            flt = []
+            if not filtered and len(v["alleles"]) == 1:
+                flt, filtered = ["RefCall"], True
+            records.append((name, v["pos"], ref_bases, alts,
+                            _truth_genotype(v), kind, flt))
+        # Beside a planted variant, so that the haplotype labeler groups
+        # the unsupported record with a candidate and counts it.
+        near = [v["pos"] + 12 for v in planted
+                if chr(ref[v["pos"] + 12]) in "ACGT"]
+        for p in sorted(rng.choice(near, 2, replace=False).tolist()):
+            base = chr(ref[p])
+            alt = "ACGT"[("ACGT".index(base) + 1) % 4]
+            records.append((name, p, base, [alt], [0, 1], "class1", []))
+        lo = planted[k]["pos"] - 5
+        hi = planted[k + 1]["pos"] + 15
+        bed += [(name, 0, lo), (name, hi, length)]
+    records.sort(key=lambda r: ([n for n, _ in sample["contigs"]].index(
+        r[0]), r[1]))
+    path = os.path.join(directory, "truth.vcf.gz")
+    header = VcfHeader(contigs, [sample["sample_name"]], extras=[(
+        "INFO", '<ID=type,Number=1,Type=String,Description="Class">')])
+    with VcfWriter(path, header) as w:
+        for name, pos, ref_bases, alts, gt, kind, flt in records:
+            w.write(Variant(
+                reference_name=name, start=pos, end=pos + len(ref_bases),
+                reference_bases=ref_bases, alternate_bases=list(alts),
+                filter=flt, info={"type": [kind]},
+                calls=[VariantCall(call_set_name=sample["sample_name"],
+                                   genotype=gt)]))
+    build_index(path)
+    bed_path = os.path.join(directory, "confident.bed")
+    with open(bed_path, "w") as f:
+        f.writelines(f"{n}\t{a}\t{b}\n" for n, a, b in bed)
+    return dict(truth=path, confident=bed_path)

@@ -225,16 +225,11 @@ def test_model_presets_match_jax(model_type):
 
 
 UNPORTED = {
-    "cram": dict(reads_filename="reads.cram"),
     "small-model": dict(call_small_model_examples=True),
     "small-model-train": dict(write_small_model_examples=True),
     "small-model-path": dict(trained_small_model_path="m"),
     "small-model-cvos": dict(small_model_cvo_filename="c.tfrecord"),
     "small-model-examples": dict(small_model_examples_filename="e.tfrecord"),
-    "training": dict(mode="training"),
-    "truth": dict(truth_variants_filename="t.vcf.gz"),
-    "confident-regions": dict(confident_regions_filename="c.bed"),
-    "downsample-classes": dict(downsample_classes=[1.0, 0.5, 0.5]),
     "denovo": dict(denovo_regions=["chr1:1-10"]),
 }
 

@@ -19,9 +19,14 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "calling.call_variants", "calling.cvo_writer", "calling.plan_predictor",
     "core.cigar", "core.genomics_math", "core.protowire", "core.ranges",
     "core.sharded_files", "core.types",
-    "io.bam", "io.bam_writer", "io.bgzf", "io.examples", "io.fasta",
+    "io.bam", "io.bam_writer", "io.bgzf", "io.cram", "io.examples",
+    "io.fasta",
     "io.flax_msgpack", "io.methylation", "io.tabix", "io.tfrecord",
     "io.vcf",
+    "labeler.combined_labeler", "labeler.compare_labelers",
+    "labeler.customized_classes_labeler", "labeler.haplotype_labeler",
+    "labeler.labeled_examples_to_vcf", "labeler.soft_labeler",
+    "labeler.variant_labeler",
     "make_examples.allele_counter", "make_examples.allele_frequency",
     "make_examples.alt_aligned",
     "make_examples.core", "make_examples.examples_builder",
@@ -40,7 +45,7 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "realign.realigner", "realign.ssw", "realign.window_selector",
     "scripts.call_variants", "scripts.make_examples",
     "scripts.postprocess_variants", "scripts.run_deepvariant",
-    "testing.synthetic",
+    "testing.cram_writer", "testing.synthetic",
     "utils.resources",
 ))
 
@@ -136,6 +141,51 @@ def test_stream_worker_runs_without_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", _STREAM_SCRIPT],
                          cwd=str(tmp_path), env=env, capture_output=True, text=True,
                          timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "clean" in out.stdout
+
+
+_TRAINING_SCRIPT = r"""
+import json, os, sys, tempfile
+from deepvariant_tpu_torch.core import types
+from deepvariant_tpu_torch.io import bam, bam_writer
+from deepvariant_tpu_torch.make_examples import core, presets
+from deepvariant_tpu_torch.testing import cram_writer, synthetic
+d = tempfile.mkdtemp()
+sample = synthetic.synthetic_sample(3, (("chr1", 2000),))
+paths = synthetic.write_inputs(sample, d, types, bam, bam_writer)
+paths.update(synthetic.write_truth_inputs(sample, d, seed=1))
+cram = cram_writer.write_cram(sample, os.path.join(d, "reads.cram"))
+options = core.MakeExamplesOptions(
+    mode="training", reads_filename=cram, ref_filename=paths["ref"],
+    truth_variants_filename=paths["truth"],
+    confident_regions_filename=paths["confident"],
+    examples_filename=os.path.join(d, "ex.tfrecord"),
+    realigner_enabled=False, regions=["chr1:100-900"])
+presets.apply_model_preset(options, "WGS")
+counts = core.make_examples_runner(options)
+with open(os.path.join(d, "ex.tfrecord.labeling_metrics.json")) as f:
+    metrics = json.load(f)
+assert counts["examples"] > 0 and metrics["n_true_positive_sites"] > 0
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not bad, bad
+print("clean", counts["examples"])
+""" % (FORBIDDEN,)
+
+
+def test_cram_training_run_without_jax(tmp_path):
+    """A training-mode run of the runner on a CRAM (the haplotype
+    labeler, the labeling metrics) with the forbidden packages made
+    unimportable."""
+    for name in FORBIDDEN:
+        pkg = tmp_path / name
+        pkg.mkdir()
+        (pkg / "__init__.py").write_text(
+            f"raise ImportError('the port must not import {name}')\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
+    out = subprocess.run([sys.executable, "-c", _TRAINING_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "clean" in out.stdout
 

@@ -569,3 +569,29 @@ def run_cli_outputs(cli, paths, out_dir, flags, shards=1, mode="calling"):
                 with open(path, "rb") as f:
                     out.setdefault(name, []).append(f.read())
     return out
+
+
+# -- CRAM and training mode ---------------------------------------------------
+
+def cram_sample(seed=7, contig_lengths=(("chr1", 2500), ("chr2", 1200))):
+    """A small sample for the CRAM readers: a twentieth of the reads
+    spliced (N ops), OQ, tp/t0 and right-shifted homopolymer indels on
+    the reads (`synthetic.add_read_options`)."""
+    from deepvariant_tpu_torch.testing import synthetic
+
+    sample = synthetic.synthetic_sample(seed, contig_lengths,
+                                        skip_fraction=0.05)
+    return synthetic.add_read_options(sample, seed + 100, shifted_indels=10)
+
+
+def training_inputs(sample, directory, seed=3):
+    """ref.fa, reads.bam (the JAX package's writer), reads.cram (rANS
+    order 1, the FASTA as reference), truth.vcf.gz and confident.bed of
+    `sample`; returns their paths."""
+    from deepvariant_tpu_torch.testing import cram_writer, synthetic
+
+    paths = write_stage1_inputs(sample, directory)
+    paths.update(synthetic.write_truth_inputs(sample, str(directory), seed))
+    paths["cram"] = cram_writer.write_cram(
+        sample, os.path.join(str(directory), "reads.cram"))
+    return paths
