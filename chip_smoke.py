@@ -172,7 +172,33 @@ Phases:
      examples image by image and label by label; labeled_examples_to_vcf
      turns the examples into a VCF. Prints TP/FP/FN sites, the labeler's
      seconds per kb and the launches of both routes.
- 14. One JSON line per the kernels, the card's name and power limit, and
+ 14. Training on the card. (a) Phase 13 route B's labeled examples (the
+     CLI's TFRecords from the CRAM and the BAM, whose images phase 13
+     held equal to the CUDA plan form's) as train and tune dataset
+     configs: the train CLI (`scripts/train.py`, the `wgs_test` preset,
+     InceptionV3(7) at full width, bfloat16, batch TRAIN_CLI_BATCH, two
+     epochs) must write finite losses, the right step count, the epoch
+     checkpoint, best.msgpack and example_info.json; the port's
+     call_variants CLI from that best.msgpack over the same examples must
+     give one CVO per example, within TRAIN_CALL_PROB_ATOL of the trained
+     float32 model; train_resident on the same data must write its
+     history, final.msgpack and best.msgpack. (b) One float32 step of
+     InceptionV3(7) (dropout 0) at batch TRAIN_CHECK_BATCH from seeded
+     weights, for sgd, adam and rmsprop, on the card and on the CPU,
+     against the same step in float64 on the card: loss, the update of
+     params and ema_params and of the optimizer's trees, batch_stats and
+     counts, each within its stated limit; then the bfloat16 step's loss
+     against the float32 step's. (c) TRAIN_EXAMPLES seeded examples
+     resident on the card; ms per train step (forward, backward and
+     update, back to back, CUDA events) at batch TRAIN_BATCH in bfloat16
+     and float32 (TF32 off) with accumulation 1 and 4, each step's batch
+     gathered on the card; examples/s, the peak of allocated memory and
+     the share of the bf16 peak (989 TFLOP/s) at 3x the forward FLOPs
+     counted from the conv shapes; once more in bfloat16 with cuDNN's
+     autotuner on (the port leaves it off); then torch.profiler over
+     three bfloat16 steps: the device's busy share and the ops that take
+     its time. The paint kernel must not be launched in phase 14.
+ 15. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
@@ -181,9 +207,10 @@ again around the stream of each of phases 7, 8, 9 and 10 (in phases 9
 and 10 around run_streaming_pipeline: the stream, then stage 3, which
 paints nothing), around each `--stream` run of phase 11 (the
 host-encode one must launch none), around route A's stream in phase 12
-and around the whole of route B (which must launch none), and in phase
-13 around route A's `--stream` run and around the painting of route B's
-labeled plans; the
+and around the whole of route B (which must launch none), in phase 13
+around route A's `--stream` run and around the painting of route B's
+labeled plans, and around the whole of phase 14 (training paints
+nothing: it must count 0); the
 comparisons of phase 2 and of the checks after the paths are not
 counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
@@ -193,6 +220,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import math
@@ -303,6 +331,36 @@ METH_SHAPE = (100, 147, 12)
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
+# Phase 14: training on the card.
+TRAIN_CLI_BATCH = 8            # the CLI and train_resident on phase 13's
+TRAIN_CALL_PROB_ATOL = 0.05    # bfloat16 CVOs vs the float32 model
+TRAIN_CHECK_BATCH = 8          # the card-vs-CPU step
+# Optimizer trees compared in the card-vs-CPU step, besides params and
+# ema_params.
+TRAIN_CHECK_GROUPS = {
+    "sgd": [("params",), ("ema_params",), ("opt_state", "0", "trace")],
+    "adam": [("params",), ("ema_params",), ("opt_state", "0", "mu"),
+             ("opt_state", "0", "nu")],
+    "rmsprop": [("params",), ("ema_params",), ("opt_state", "0", "nu"),
+                ("opt_state", "2", "trace")],
+}
+# Relative L2 distance of a float32 step's update from the float64
+# step's, and of the card's from the CPU's. Measured on the CPU at batch
+# 8 (float32 against float64): sgd 0.026, adam 0.129 (its first step
+# moves every weight by about +-lr, and gradients near 0 flip sign),
+# rmsprop 0.072; the limits are 3-4 times those.
+TRAIN_CHECK_RTOL = {"sgd": 0.1, "adam": 0.4, "rmsprop": 0.25}
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_STATS_RTOL = 1e-4
+# The bfloat16 step's loss against the float32 step's, measured on the
+# CPU: 8.5e-4 at batch 8, 3.2e-2 at batch 2.
+TRAIN_BF16_LOSS_RTOL = 5e-2
+TRAIN_EXAMPLES = 4096          # 634 MB of 100x221x7 resident
+TRAIN_BATCH = 512
+# (dtype, accumulation, timed steps, warm-up steps)
+TRAIN_TIMINGS = (("bfloat16", 1, 10, 3), ("bfloat16", 4, 4, 1),
+                 ("float32", 1, 4, 1), ("float32", 4, 2, 1))
+BF16_PEAK_FLOPS = 989e12       # H100 SXM dense bf16 (NVIDIA's data sheet)
 PAINT_OPS_PER_PIXEL = 10         # min, mul, div (quality) + 7 mask muls
 
 
@@ -2692,7 +2750,8 @@ def phase_cram_training(tmp: str, device, card: str, bam_route: dict):
     by the CUDA plan form, equal to the labeled examples image by image
     and label by label; labeled_examples_to_vcf writes their VCF.
     Returns (numbers, the kernels-line entries of route A's stream and of
-    route B's labeled plans, with their launches)."""
+    route B's labeled plans, with their launches, and the paths of route
+    B's labeled examples from the CRAM and from the BAM)."""
     import torch
 
     from deepvariant_tpu_torch.calling.call_variants import read_cvos
@@ -2955,7 +3014,448 @@ def phase_cram_training(tmp: str, device, card: str, bam_route: dict):
         "phase13_s": time.time() - phase_start}
     print(f"[{tag}] phase 13 (routes A and B) {numbers['phase13_s']:.1f} s; "
           f"{card}")
-    return numbers, [entry_a, entry_b]
+    # Route B's labeled examples, from the CRAM and from the BAM (equal
+    # byte for byte), for phase 14 to train on.
+    labeled_examples = {"train": examples["cram"], "tune": examples["bam"]}
+    return numbers, [entry_a, entry_b], labeled_examples
+
+
+
+def read_flax(path: str) -> dict:
+    from deepvariant_tpu_torch.io import flax_msgpack
+
+    with open(path, "rb") as f:
+        return flax_msgpack.unpack(f.read())
+
+
+def flat_tree(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for key, value in tree.items():
+            out.update(flat_tree(value, prefix + (key,)))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def forward_flops_per_example(shape) -> float:
+    """2 x multiply-adds of every conv and of the head of InceptionV3 for
+    one (H, W, C) example, counted from the output shapes of a forward
+    pass on the meta device (no data, no card)."""
+    import torch
+
+    from deepvariant_tpu_torch.models.inception_v3 import ConvBN, InceptionV3
+
+    model = InceptionV3(shape[2]).to("meta").eval()
+    total = []
+
+    def conv_hook(module, inputs, output):
+        conv = module.conv
+        kh, kw = conv.kernel_size
+        total.append(2 * output.numel() * conv.in_channels * kh * kw)
+
+    def head_hook(module, inputs, output):
+        total.append(2 * output.numel() * module.in_features)
+
+    for module in model.modules():
+        if isinstance(module, ConvBN):
+            module.register_forward_hook(conv_hook)
+    model.classification.register_forward_hook(head_hook)
+    with torch.no_grad():
+        model(torch.zeros((1,) + tuple(shape), device="meta"))
+    return float(sum(total))
+
+
+def update_distance(got: dict, want: dict, start: dict, group) -> float:
+    """Relative L2 distance between two states' moves from `start` (the
+    initial weights for params and ema_params, zero for an optimizer
+    tree) over the leaves under `group`."""
+    keys = [k for k in want if k[:len(group)] == group]
+    if not keys or set(keys) != {k for k in got if k[:len(group)] == group}:
+        raise AssertionError(f"state trees differ under {group}")
+
+    def origin(k):
+        return start[("params",) + k[1:]] if group[0] in (
+            "params", "ema_params") else 0
+
+    num = sum(float(np.sum((got[k].astype(np.float64) - want[k]) ** 2))
+              for k in keys)
+    den = sum(float(np.sum((want[k].astype(np.float64) - origin(k)) ** 2))
+              for k in keys)
+    return (num / den) ** 0.5
+
+
+def one_train_step(weights: dict, batch: dict, optimizer: str, device,
+                   dtype, compute=None):
+    """The port's state (flax layout, numpy) and loss after one train
+    step of InceptionV3(7), dropout 0, from `weights` on `device`: the
+    weights in `dtype` (the head in float32, as the pooled features
+    are), computing in `compute` (default `dtype`)."""
+    import torch
+
+    from deepvariant_tpu_torch.models.checkpoint import state_to_flax
+    from deepvariant_tpu_torch.models.inception_v3 import InceptionV3
+    from deepvariant_tpu_torch.training import train as train_lib
+    from deepvariant_tpu_torch.training.config import TrainConfig
+
+    cfg = TrainConfig(optimizer=optimizer, use_mixed_precision=False,
+                      learning_rate=0.01 if optimizer == "sgd" else 1e-3)
+    model = InceptionV3(SHAPE[2], dropout_rate=0.0, dtype=compute or dtype)
+    tx, _ = train_lib.make_optimizer(cfg, 10)
+    variables = {c: {k: v.to(device, torch.float32 if k.startswith(
+        "classification") else dtype) for k, v in tree.items()}
+        for c, tree in weights.items()}
+    state = train_lib.init_state(model, variables, tx)
+    start = state_to_flax(state)
+    state, loss, _ = train_lib.make_train_step(model, tx, cfg)(
+        state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+    return start, state_to_flax(state), float(loss)
+
+
+def time_train_steps(data: dict, dtype_name: str, accum: int, device,
+                     card: str, flops_per_example: float,
+                     steps: int, warmup: int) -> dict:
+    """ms per train step of the full InceptionV3(7) at batch
+    TRAIN_BATCH x `accum` (forward, backward and update, back to back;
+    CUDA events), each step's batch gathered on the card from the
+    resident examples as train_resident gathers it."""
+    import torch
+
+    from deepvariant_tpu_torch.training import train as train_lib
+    from deepvariant_tpu_torch.training.config import TrainConfig
+
+    batch = TRAIN_BATCH * accum
+    cfg = TrainConfig(batch_size=batch, gradient_accumulation_steps=accum,
+                      use_mixed_precision=dtype_name == "bfloat16")
+    model, variables = train_lib.training_model(cfg, SHAPE, device)
+    tx, _ = train_lib.make_optimizer(cfg, 10)
+    state = train_lib.init_state(model, variables, tx)
+    step = train_lib.make_train_step(model, tx, cfg)
+    n = data["labels"].shape[0]
+    rng = np.random.default_rng(SEED)
+    order = [torch.from_numpy(rng.permutation(n)[:batch]).to(device)
+             for _ in range(steps + warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for idx in order[:warmup]:
+        state, loss, _ = step(state, {k: v.index_select(0, idx)
+                                      for k, v in data.items()})
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for idx in order[warmup:]:
+        state, loss, _ = step(state, {k: v.index_select(0, idx)
+                                      for k, v in data.items()})
+        losses.append(loss)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / steps
+    peak = torch.cuda.max_memory_allocated()
+    final_loss = float(torch.stack(losses).mean())
+    if not math.isfinite(final_loss):
+        raise AssertionError(f"train steps at {dtype_name} x{accum}: loss "
+                             f"{final_loss}")
+    step_flops = 3 * flops_per_example * batch
+    share = step_flops / (ms / 1e3) / BF16_PEAK_FLOPS
+    print(f"[train timing] {dtype_name}, batch {TRAIN_BATCH} x accumulation "
+          f"{accum} (effective {batch}): {ms:.2f} ms/step, "
+          f"{batch / (ms / 1e3):.1f} examples/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, {step_flops / 1e12:.3f} TFLOP/step = "
+          f"{share:.2%} of the bf16 peak; mean loss {final_loss:.4f} over "
+          f"{steps} steps; {card}")
+    return {"ms_per_step": ms, "examples_per_s": batch / (ms / 1e3),
+            "max_memory_allocated": peak, "bf16_peak_share": share,
+            "tflop_per_step": step_flops / 1e12}
+
+
+def profile_train_steps(data: dict, device, card: str, steps: int = 3
+                        ) -> dict:
+    """torch.profiler over `steps` bfloat16 train steps at batch
+    TRAIN_BATCH (after two warm-up steps): the device's busy share of the
+    window (the sum of the kernels' times over the window's wall time)
+    and the ops that took most device time. A profile that returns no
+    device records is printed, not failed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepvariant_tpu_torch.training import train as train_lib
+    from deepvariant_tpu_torch.training.config import TrainConfig
+
+    cfg = TrainConfig(batch_size=TRAIN_BATCH)
+    model, variables = train_lib.training_model(cfg, SHAPE, device)
+    tx, _ = train_lib.make_optimizer(cfg, 10)
+    state = train_lib.init_state(model, variables, tx)
+    step = train_lib.make_train_step(model, tx, cfg)
+    idx = torch.arange(TRAIN_BATCH, device=device)
+    batch = {k: v.index_select(0, idx) for k, v in data.items()}
+    for _ in range(2):
+        state, loss, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(steps):
+            state, loss, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    if not events:
+        print(f"[train profile] the profiler returned no device records; "
+              f"{card}")
+        return {"train_profile_wall_ms": wall_ms}
+    by_op = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
+    top = [(a.key[:60], a.self_device_time_total / 1e3 / steps)
+           for a in by_op[:10] if a.self_device_time_total > 0]
+    print(f"[train profile] bfloat16 x1, {steps} steps: wall "
+          f"{wall_ms / steps:.2f} ms/step, kernels {busy_ms / steps:.2f} "
+          f"ms/step, device busy {busy_ms / wall_ms:.1%}; {len(events)} "
+          f"kernels; ms/step by op: " + "; ".join(f"{k} {v:.2f}"
+                                                 for k, v in top)
+          + f"; {card}")
+    return {"train_profile_wall_ms": wall_ms / steps,
+            "train_profile_kernel_ms": busy_ms / steps,
+            "train_profile_busy_share": busy_ms / wall_ms,
+            "train_profile_top_ops_ms": top}
+
+
+def phase_training(tmp: str, device, card: str, labeled: dict) -> dict:
+    """Phase 14: training on the card. (a) Phase 13's labeled examples
+    through the train CLI (`wgs_test`, full width), the port's
+    call_variants from its best.msgpack, and train_resident; (b) one
+    float32 step of InceptionV3(7) at batch TRAIN_CHECK_BATCH on the card
+    and on the CPU for sgd, adam and rmsprop against a float64 step on
+    the card, and the bfloat16 step's loss; (c) ms per step at batch
+    TRAIN_BATCH, bfloat16 and float32, accumulation 1 and 4, over
+    TRAIN_EXAMPLES seeded examples resident on the card. The paint
+    kernel must not be launched."""
+    import torch
+
+    from deepvariant_tpu_torch.calling.call_variants import read_cvos
+    from deepvariant_tpu_torch.io import examples as example_codec
+    from deepvariant_tpu_torch.io.tfrecord import TFRecordReader
+    from deepvariant_tpu_torch.models.checkpoint import (
+        load_variables_for_examples,
+    )
+    from deepvariant_tpu_torch.models.inception_v3 import (
+        normalize_pileup,
+        tree_from_flax,
+        to_flax_variables,
+    )
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.scripts import call_variants as cv_cli
+    from deepvariant_tpu_torch.scripts import train as train_cli
+    from deepvariant_tpu_torch.training import train_resident as resident_lib
+    from deepvariant_tpu_torch.training.config import get_config
+    from deepvariant_tpu_torch.training.data import DatasetConfig
+
+    phase_start = time.time()
+    pp.paint_pileup.launches = 0
+    tag = "train"
+    directory = os.path.join(tmp, "training")
+    os.makedirs(directory)
+    numbers = {}
+
+    # -- (a) the labeled examples to a trained model and back --
+    with TFRecordReader(labeled["train"]) as reader:
+        records = list(reader)
+    n = len(records)
+    configs = {}
+    for name in ("train", "tune"):
+        configs[name] = os.path.join(directory, f"{name}.pbtxt")
+        DatasetConfig(name=name, tfrecord_path=labeled[name],
+                      num_examples=n).write(configs[name])
+    exp = os.path.join(directory, "cli")
+    argv = ["--config", "wgs_test", "--train_dataset_config",
+            configs["train"], "--tune_dataset_config", configs["tune"],
+            "--experiment_dir", exp, "--batch_size", str(TRAIN_CLI_BATCH),
+            "--num_epochs", "2"]
+    buf = io.StringIO()
+    start = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    cli_s = time.time() - start
+    epochs = [json.loads(line.split(": ", 1)[1])
+              for line in buf.getvalue().splitlines()
+              if line.startswith("epoch ")]
+    ckpt_dir = os.path.join(exp, "checkpoints")
+    files = sorted(os.listdir(ckpt_dir))
+    last = read_flax(os.path.join(ckpt_dir, "ckpt-1.msgpack"))
+    want_steps = 2 * min(n // TRAIN_CLI_BATCH, 50)
+    losses = [e[k] for e in epochs for k in ("train/loss", "tune/loss")]
+    print(f"[{tag}] train CLI (wgs_test, InceptionV3(7) at 100x221x7, "
+          f"bfloat16, batch {TRAIN_CLI_BATCH}) on phase 13's {n} labeled "
+          f"examples: {len(epochs)} epochs in {cli_s:.1f} s, losses "
+          f"{[round(x, 4) for x in losses]}, step {int(last['step'])}, "
+          f"files {files}; {card}")
+    if rc != 0 or len(epochs) != 2 or not all(map(math.isfinite, losses)) \
+            or int(last["step"]) != want_steps or files != [
+                "best.msgpack", "ckpt-1.msgpack", "example_info.json"]:
+        raise AssertionError(f"{tag}: the train CLI exited {rc} with "
+                             f"{len(epochs)} epochs, losses {losses}, step "
+                             f"{int(last['step'])} of {want_steps}, files "
+                             f"{files}")
+    # call_variants from the trained checkpoint, on the card.
+    cvo = os.path.join(directory, "cvo.tfrecord.gz")
+    quiet(cv_cli.main, ["--examples", labeled["train"], "--outfile", cvo,
+                        "--checkpoint", ckpt_dir, "--batch_size",
+                        str(BATCH)], tag + " call_variants")
+    cvos = list(read_cvos(cvo))
+    model, _ = load_variables_for_examples(ckpt_dir, labeled["train"],
+                                           device=device)
+    images = np.stack([example_codec.parse_example(r).image
+                       for r in records])
+    with torch.no_grad():
+        want = model(normalize_pileup(torch.from_numpy(images).to(device),
+                                      torch.float32)).cpu().numpy()
+    got = np.asarray([c.genotype_probabilities for c in cvos])
+    err = float(np.abs(got - want).max()) if len(got) == n else math.inf
+    print(f"[{tag}] call_variants (bfloat16, batch {BATCH}) from "
+          f"best.msgpack: {len(cvos)} CVOs for {n} examples; max |p - p of "
+          f"the trained float32 model| {err:.5f} (limit "
+          f"{TRAIN_CALL_PROB_ATOL}); {card}")
+    if len(cvos) != n or err > TRAIN_CALL_PROB_ATOL:
+        raise AssertionError(f"{tag}: {len(cvos)} CVOs for {n} examples, "
+                             f"max error {err}")
+    # The resident trainer on the same data.
+    cfg = dataclasses.replace(
+        get_config("wgs_test"), train_dataset_config=configs["train"],
+        tune_dataset_config=configs["tune"], batch_size=TRAIN_CLI_BATCH,
+        num_epochs=2)
+    rexp = os.path.join(directory, "resident")
+    logs = []
+    start = time.time()
+    results = resident_lib.train_resident(cfg, rexp, device=device,
+                                          log_fn=logs.append)
+    resident_s = time.time() - start
+    with open(os.path.join(rexp, "history.json")) as f:
+        history = json.load(f)
+    rfiles = sorted(os.listdir(os.path.join(rexp, "checkpoints")))
+    final = read_flax(os.path.join(rexp, "checkpoints", "final.msgpack"))
+    rlosses = [h[k] for h in history for k in ("train/loss", "tune/loss")]
+    print(f"[{tag}] train_resident (wgs_test, batch {TRAIN_CLI_BATCH}): "
+          f"{len(history)} epochs in {resident_s:.1f} s, losses "
+          f"{[round(x, 4) for x in rlosses]}, step {int(final['step'])}, "
+          f"best epoch {results['best_epoch']}, files {rfiles}; {card}")
+    if len(history) != 2 or not all(map(math.isfinite, rlosses)) or \
+            int(final["step"]) != 2 * (n // TRAIN_CLI_BATCH) or rfiles != [
+                "best.msgpack", "example_info.json", "final.msgpack"] or \
+            set(final) != {"params", "batch_stats", "ema_params", "step"}:
+        raise AssertionError(f"{tag}: train_resident wrote {rfiles}, "
+                             f"history {history}")
+    numbers.update({"train_cli_s": cli_s, "train_cli_examples": n,
+                    "train_cli_steps": int(last["step"]),
+                    "train_call_variants_max_err": err,
+                    "train_resident_s": resident_s})
+
+    # -- (b) one step, the card against the CPU and float64 --
+    weights = to_flax_variables(seeded_model(SHAPE[2]))
+    weights = {c: tree_from_flax(t) for c, t in weights.items()}
+    rng = np.random.RandomState(SEED + 14)
+    batch = {
+        "images": rng.randint(0, 256, (TRAIN_CHECK_BATCH,) + SHAPE
+                              ).astype(np.uint8),
+        "labels": rng.randint(0, 3, TRAIN_CHECK_BATCH).astype(np.int32),
+        "sample_weights": np.ones(TRAIN_CHECK_BATCH, np.float32),
+        "variant_types": rng.randint(0, 3, TRAIN_CHECK_BATCH
+                                     ).astype(np.int32)}
+    cpu = torch.device("cpu")
+    for optimizer, groups in TRAIN_CHECK_GROUPS.items():
+        start_tree, card32, loss32 = one_train_step(
+            weights, batch, optimizer, device, torch.float32)
+        _, cpu32, cpu_loss = one_train_step(weights, batch, optimizer, cpu,
+                                            torch.float32)
+        _, card64, loss64 = one_train_step(weights, batch, optimizer, device,
+                                           torch.float64)
+        start_tree, card32, cpu32, card64 = map(
+            flat_tree, (start_tree, card32, cpu32, card64))
+        worst = {}
+        for group in groups:
+            bound = TRAIN_CHECK_RTOL[optimizer]
+            d = {"card-f64": update_distance(card32, card64, start_tree,
+                                             group),
+                 "cpu-f64": update_distance(cpu32, card64, start_tree, group),
+                 "card-cpu": update_distance(card32, cpu32, start_tree,
+                                             group)}
+            worst["/".join(group)] = d
+            if max(d.values()) > bound:
+                raise AssertionError(f"{tag}: {optimizer} {group}: update "
+                                     f"distances {d} over {bound}")
+        stats_err = max(float(np.max(np.abs(card32[k] - cpu32[k]) /
+                                     (np.abs(cpu32[k]) + 1e-3)))
+                        for k in cpu32 if k[0] == "batch_stats")
+        counts_equal = all(np.array_equal(card32[k], cpu32[k])
+                           for k in cpu32 if cpu32[k].dtype.kind == "i")
+        loss_err = max(abs(loss32 - loss64), abs(cpu_loss - loss64)) / \
+            abs(loss64)
+        print(f"[{tag}] one float32 step, {optimizer}, batch "
+              f"{TRAIN_CHECK_BATCH}: loss card {loss32:.6f}, CPU "
+              f"{cpu_loss:.6f}, card float64 {loss64:.6f} (rel. err "
+              f"{loss_err:.2e}, limit {TRAIN_LOSS_RTOL}); update distances "
+              f"(relative L2, limit {TRAIN_CHECK_RTOL[optimizer]}): "
+              + ", ".join(f"{g} " + "/".join(f"{v:.4f}" for v in d.values())
+                          for g, d in worst.items())
+              + f" (card-f64/cpu-f64/card-cpu); batch_stats rel. err "
+              f"{stats_err:.2e}; counts equal {counts_equal}; {card}")
+        if loss_err > TRAIN_LOSS_RTOL or stats_err > TRAIN_STATS_RTOL or \
+                not counts_equal:
+            raise AssertionError(f"{tag}: {optimizer} step: loss error "
+                                 f"{loss_err}, batch_stats error {stats_err}"
+                                 f", counts equal {counts_equal}")
+        numbers[f"train_step_{optimizer}_distances"] = worst
+    _, _, bf16_loss = one_train_step(weights, batch, "sgd", device,
+                                     torch.float32, torch.bfloat16)
+    _, _, f32_loss = one_train_step(weights, batch, "sgd", device,
+                                    torch.float32)
+    bf16_err = abs(bf16_loss - f32_loss) / abs(f32_loss)
+    print(f"[{tag}] bfloat16 step loss {bf16_loss:.6f} against the float32 "
+          f"step's {f32_loss:.6f}: rel. {bf16_err:.4f} (limit "
+          f"{TRAIN_BF16_LOSS_RTOL}); {card}")
+    if bf16_err > TRAIN_BF16_LOSS_RTOL:
+        raise AssertionError(f"{tag}: bfloat16 loss {bf16_loss} against "
+                             f"{f32_loss}")
+    numbers["train_bf16_loss_rel_err"] = bf16_err
+
+    # -- (c) ms per step at full width --
+    flops = forward_flops_per_example(SHAPE)
+    print(f"[{tag}] forward FLOPs per 100x221x7 example, counted from the "
+          f"conv and head shapes: {flops / 1e9:.4f} GFLOP; a train step "
+          f"counts 3x (forward, the input and the weight gradients)")
+    rng = np.random.RandomState(SEED + 15)
+    data = {
+        "images": torch.from_numpy(rng.randint(
+            0, 256, (TRAIN_EXAMPLES,) + SHAPE).astype(np.uint8)).to(device),
+        "labels": torch.from_numpy(rng.randint(
+            0, 3, TRAIN_EXAMPLES).astype(np.int32)).to(device),
+        "sample_weights": torch.ones(TRAIN_EXAMPLES, device=device),
+        "variant_types": torch.from_numpy(rng.randint(
+            0, 3, TRAIN_EXAMPLES).astype(np.int32)).to(device)}
+    print(f"[{tag}] {TRAIN_EXAMPLES} seeded examples resident on the card: "
+          f"{data['images'].numel() / 1e6:.1f} MB")
+    timing = {}
+    for dtype_name, accum, steps, warmup in TRAIN_TIMINGS:
+        timing[f"{dtype_name}_x{accum}"] = time_train_steps(
+            data, dtype_name, accum, device, card, flops, steps, warmup)
+    # cuDNN's autotuner, which the port leaves off, for comparison.
+    torch.backends.cudnn.benchmark = True
+    try:
+        timing["bfloat16_x1_cudnn_benchmark"] = time_train_steps(
+            data, "bfloat16", 1, device, card, flops, 8, 3)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    numbers.update(profile_train_steps(data, device, card))
+    del data
+    numbers["train_forward_gflop_per_example"] = flops / 1e9
+    numbers["train_timing"] = timing
+    launches = pp.paint_pileup.launches
+    numbers["phase14_s"] = time.time() - phase_start
+    print(f"[{tag}] paint kernel launches in phase 14: {launches}; phase 14 "
+          f"{numbers['phase14_s']:.1f} s; {card}")
+    if launches != 0:
+        raise AssertionError(f"{tag}: the paint kernel was launched "
+                             f"{launches} times by training")
+    return numbers
 
 
 def main() -> int:
@@ -3042,11 +3542,15 @@ def main() -> int:
         kernels.append(read_kernel)
         # CRAM input and training mode: phase 11's sample as a CRAM to a
         # VCF, and its labeled plans painted on the card.
-        cram_numbers, cram_kernels = phase_cram_training(
+        cram_numbers, cram_kernels, labeled = phase_cram_training(
             tmp, device, card, bam_route)
         del bam_route
         summary.update(cram_numbers)
         kernels.extend(cram_kernels)
+        # Training on the card: phase 13's labeled examples through the
+        # train CLI, call_variants and train_resident; one step against
+        # the CPU; ms per step at full width.
+        summary.update(phase_training(tmp, device, card, labeled))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)

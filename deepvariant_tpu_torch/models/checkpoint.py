@@ -8,7 +8,10 @@ told apart by the keys present rather than by a template:
     step} (training/train_resident.py);
   * the full TrainState {params, batch_stats, opt_state, ema_params,
     step} (training/train.py).
-`save_variables` writes the lean bundle, which the JAX package loads.
+`save_variables` writes the lean bundle, which the JAX package loads;
+`save_train_state` and `load_train_state` write and read the trainer's
+states (training/train.py) in the layout of the JAX package's
+`save_checkpoint`, which its `load_checkpoint` reads against a template.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import json
 import os
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from deepvariant_tpu_torch.io import examples as example_codec
@@ -27,6 +31,8 @@ from deepvariant_tpu_torch.models.inception_v3 import (
     from_flax_variables,
     prepare_for_inference,
     to_flax_variables,
+    tree_from_flax,
+    tree_to_flax,
 )
 
 
@@ -131,3 +137,72 @@ def save_variables(path: str, model: InceptionV3,
         with open(os.path.join(os.path.dirname(path),
                                "example_info.json"), "w") as f:
             json.dump(example_info, f)
+
+
+# ---------------------------------------------------------------------------
+# Training states: {params, batch_stats, opt_state, ema_params, step}
+# ---------------------------------------------------------------------------
+
+def _is_named_tree(node) -> bool:
+    """A {state-dict name: tensor} map of the trainer's state (params,
+    batch_stats, an optimizer moment), as against a tree level whose
+    keys name collections, chain positions or state fields."""
+    return (isinstance(node, dict) and bool(node)
+            and all("." in k and isinstance(v, torch.Tensor)
+                    for k, v in node.items()))
+
+
+def state_to_flax(state):
+    """A trainer state -> the tree flax serializes: each named map in
+    flax's nested layout (kernels HWIO), every tensor a numpy array
+    (int32 counts and steps as 0-d arrays)."""
+    if _is_named_tree(state):
+        return tree_to_flax(state)
+    if isinstance(state, dict):
+        return {k: state_to_flax(v) for k, v in state.items()}
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().numpy()
+    raise TypeError(f"cannot write {type(state).__name__} into a checkpoint")
+
+
+def state_from_flax(tree, template):
+    """The inverse of `state_to_flax` against `template`, as flax's
+    `from_state_dict` restores against a target: the same keys at every
+    level, each tensor with the template's shape, dtype, device and
+    memory layout."""
+    if _is_named_tree(template):
+        named = tree_from_flax(tree)
+        if set(named) != set(template):
+            raise ValueError(
+                "checkpoint tree does not match the state: missing "
+                f"{sorted(set(template) - set(named))[:5]}, unexpected "
+                f"{sorted(set(named) - set(template))[:5]}")
+        return {k: _like(named[k], template[k]) for k in template}
+    if isinstance(template, dict):
+        if not isinstance(tree, dict) or set(tree) != set(template):
+            raise ValueError(
+                f"checkpoint keys {sorted(tree) if isinstance(tree, dict) else tree!r} "
+                f"do not match the state's {sorted(template)}")
+        return {k: state_from_flax(tree[k], template[k]) for k in template}
+    return _like(torch.from_numpy(np.array(tree)), template)
+
+
+def _like(value: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
+    if tuple(value.shape) != tuple(template.shape):
+        raise ValueError(f"checkpoint array of shape {tuple(value.shape)} "
+                         f"where the state has {tuple(template.shape)}")
+    out = value.to(device=template.device, dtype=template.dtype)
+    if template.dim() == 4 and template.is_contiguous(
+            memory_format=torch.channels_last):
+        out = out.contiguous(memory_format=torch.channels_last)
+    return out
+
+
+def save_train_state(path: str, state: dict) -> None:
+    with open(path, "wb") as f:
+        f.write(flax_msgpack.pack(state_to_flax(state)))
+
+
+def load_train_state(path: str, template: dict) -> dict:
+    with open(path, "rb") as f:
+        return state_from_flax(flax_msgpack.unpack(f.read()), template)

@@ -13,10 +13,16 @@ tensors in channels_last memory, which is the NHWC layout cuDNN's fast
 convolutions read. Convolutions go to cuDNN through `F.conv2d`, as the
 JAX package left them to XLA.
 
-On the card the convolutions run in bfloat16 (`prepare_for_inference`)
-while batch-norm statistics and the classifier head stay float32, as in
-the JAX model. This module is inference only; training waits for a
-later slice of the port.
+On the card the convolutions run in bfloat16 while batch-norm statistics
+and the classifier head stay float32, as in the JAX model. The model's
+`dtype` is its compute dtype, as flax's `dtype` field is: each conv casts
+its weight and input to it per call, so a model trained from float32
+master weights computes in bfloat16 as flax's `dtype=bfloat16` does,
+and `prepare_for_inference` casts the conv weights once instead.
+
+`module.train()` selects training mode: batch norm normalizes with the
+batch's statistics and moves its running averages the flax way, and the
+head's dropout draws from the `generator` passed to `forward`.
 """
 
 from __future__ import annotations
@@ -32,22 +38,50 @@ from torch import nn
 from deepvariant_tpu_torch.device import resolve_device
 
 NUM_CLASSES = 3  # {hom-ref, het, hom-alt} (reference dv_constants.py:77)
+DEFAULT_BACKBONE_DROPOUT_RATE = 0.2  # keras_modeling.py:43
 BN_EPSILON = 1e-3
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm with `use_scale=False`: a learned bias and the
-    running mean and variance (flax names `bias`, `mean`, `var`)."""
+    """Batch norm with `use_scale=False`: a learned bias and the running
+    mean and variance (flax names `bias`, `mean`, `var`).
 
-    def __init__(self, features: int):
+    In training mode it normalizes with the batch's biased variance and
+    moves the running averages as flax does: the statistics reduced in
+    float32 with the fast variance E[x^2] - E[x]^2 (clipped at 0), and
+    `ra = momentum * ra + (1 - momentum) * batch`. torch's own running
+    update takes the unbiased variance and the other momentum, so it is
+    not used: the running tensors are written here, in place."""
+
+    def __init__(self, features: int, momentum: float = 0.9997):
         super().__init__()
+        self.momentum = momentum
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x):
-        return F.batch_norm(x, self.mean, self.var, None, self.bias,
-                            False, 0.0, BN_EPSILON)
+        if not self.training:
+            return F.batch_norm(x, self.mean, self.var, None, self.bias,
+                                False, 0.0, BN_EPSILON)
+        with torch.no_grad():
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min(
+                xf.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
+            del xf
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        # The normalization itself (float32 inside, the output in the
+        # input's dtype, as flax casts it) and its gradient through the
+        # batch statistics; torch.batch_norm, as flax, also takes one
+        # value per channel (F.batch_norm refuses it). The scale is an
+        # explicit 1: CUDA's backward for a bfloat16 input returns no bias
+        # gradient without one.
+        return torch.batch_norm(x, torch.ones_like(self.bias), self.bias,
+                                None, None, True, 0.0, BN_EPSILON,
+                                torch.backends.cudnn.enabled)
 
 
 class ConvBN(nn.Module):
@@ -73,15 +107,36 @@ class ConvBN(nn.Module):
         self.bn = None if fold_bn else BatchNorm(features)
 
     def forward(self, x):
-        x = self.conv(x)
+        # The weight in the input's dtype (a no-op once
+        # prepare_for_inference has cast it), as flax promotes both.
+        conv = self.conv
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        x = conv._conv_forward(x, conv.weight.to(x.dtype), bias)
         if self.bn is not None:
             x = self.bn(x)
         return F.relu(x)
 
 
+class _BoxFilter3x3(torch.autograd.Function):
+    """The 3x3 stride-1 average pool with its padded zeros counted (flax's
+    SAME avg_pool). This map is self-adjoint, so its backward is the same
+    pool of the incoming gradient: torch's own avg_pool2d backward on CUDA
+    returns wrong gradients for channels_last input (seen with torch
+    2.11.0 and cuDNN 9.22 on an H100), and the forward is right."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return F.avg_pool2d(grad, 3, stride=1, padding=1,
+                            count_include_pad=True)
+
+
 def _avg_pool_same(x):
     # flax avg_pool counts the padded zeros, as count_include_pad does.
-    return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=True)
+    return _BoxFilter3x3.apply(x)
 
 
 def _max_pool_v(x):
@@ -207,19 +262,26 @@ class InceptionC(nn.Module):
 
 
 class InceptionV3(nn.Module):
-    """InceptionV3 backbone + avg-pool + 3-class head (the training-time
-    0.2 dropout is the identity here).
+    """InceptionV3 backbone + avg-pool + dropout + 3-class head.
 
     `forward` takes (B, H, W, C) NHWC input, normalized as
     `normalize_pileup` does, and returns (B, 3) float32 probabilities;
-    `logits` returns the head's float32 logits."""
+    `logits` returns the head's float32 logits. `dtype` is the compute
+    dtype of the convs; `bn_momentum` is every batch norm's running-
+    average momentum (keras InceptionV3's 0.9997 by default)."""
 
     def __init__(self, num_channels: int, num_classes: int = NUM_CLASSES,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False,
+                 dropout_rate: float = DEFAULT_BACKBONE_DROPOUT_RATE,
+                 bn_momentum: float = 0.9997,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_channels = num_channels
         self.num_classes = num_classes
         self.fold_bn = fold_bn
+        self.dropout_rate = dropout_rate
+        self.bn_momentum = bn_momentum
+        self.dtype = dtype
         f = fold_bn
         self.stem1 = ConvBN(num_channels, 32, (3, 3), 2, "VALID", fold_bn=f)
         self.stem2 = ConvBN(32, 32, (3, 3), 1, "VALID", fold_bn=f)
@@ -247,10 +309,13 @@ class InceptionV3(nn.Module):
             c = block.out_channels
         self._blocks = blocks
         self.classification = nn.Linear(c, num_classes)
+        for module in self.modules():
+            if isinstance(module, BatchNorm):
+                module.momentum = bn_momentum
 
     @property
     def compute_dtype(self) -> torch.dtype:
-        return self.stem1.conv.weight.dtype
+        return self.dtype
 
     def backbone(self, x):
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
@@ -266,11 +331,28 @@ class InceptionV3(nn.Module):
         pooled = x.mean(dim=(2, 3), dtype=torch.float32)
         return pooled.to(x.dtype).to(torch.float32)
 
-    def logits(self, x):
-        return self.classification(self.backbone(x))
+    def logits(self, x, generator: Optional[torch.Generator] = None):
+        h = self.backbone(x)
+        if self.training and self.dropout_rate > 0:
+            h = dropout(h, self.dropout_rate, generator)
+        # fp32 head, L2-regularized in the training loss
+        # (keras_modeling.py:46-68).
+        return self.classification(h)
 
-    def forward(self, x):
-        return torch.softmax(self.logits(x), dim=-1)
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return torch.softmax(self.logits(x, generator), dim=-1)
+
+
+def dropout(h: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's `nn.Dropout`: keep each element with probability 1 - rate
+    and scale the kept ones by 1 / (1 - rate). The mask is drawn from
+    `generator` (torch's default generator when None); torch cannot draw
+    JAX's masks, so the train step seeds a generator per step instead."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(h.shape, generator=generator, device=h.device,
+                      dtype=torch.float32) < keep_prob
+    return torch.where(keep, h / keep_prob, torch.zeros_like(h))
 
 
 def normalize_pileup(images_uint8: torch.Tensor,
@@ -294,19 +376,23 @@ def create_model(
     height: int = 100,
     width: int = 221,
     dtype: torch.dtype = torch.bfloat16,
-    device: Union[str, torch.device] = "cuda",
     generator: Optional[torch.Generator] = None,
+    bn_momentum: float = 0.9997,
+    device: Union[str, torch.device] = "cuda",
 ) -> InceptionV3:
     """Build the model for (height, width, num_channels) pileups with
     flax's default initialisation (lecun-normal kernels, zero biases,
     BN mean 0 and variance 1), drawn from `generator` (seed 0 when none
-    is given), ready for inference on `device` in `dtype`."""
+    is given; the JAX package's `rng`), ready for inference on `device`
+    in `dtype`. Built with the model's default 0.2 dropout, as the JAX
+    package's `create_model` is. The trainer builds it in float32 for
+    its master weights and sets the compute dtype itself."""
     if height < 75 or width < 75:
         raise ValueError(f"InceptionV3 needs at least 75x75 input, got "
                          f"{height}x{width}")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = InceptionV3(num_channels)
+    model = InceptionV3(num_channels, bn_momentum=bn_momentum)
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, (nn.Conv2d, nn.Linear)):
@@ -323,6 +409,7 @@ def prepare_for_inference(model: InceptionV3,
     """A copy of `model` in eval mode on `device`: conv weights in
     `dtype` and channels_last, batch norm and head in float32."""
     model = copy.deepcopy(model).eval().to(resolve_device(device))
+    model.dtype = dtype
     for module in model.modules():
         if isinstance(module, nn.Conv2d):
             module.to(dtype=dtype, memory_format=torch.channels_last)
@@ -358,7 +445,8 @@ def fold_batch_norm(model: InceptionV3) -> InceptionV3:
     state["classification.weight"] = model.classification.weight.detach()
     state["classification.bias"] = model.classification.bias.detach()
     folded = InceptionV3(model.num_channels, model.num_classes,
-                         fold_bn=True)
+                         fold_bn=True, dropout_rate=model.dropout_rate,
+                         bn_momentum=model.bn_momentum)
     folded.load_state_dict({k: v.float().cpu() for k, v in state.items()})
     return prepare_for_inference(folded, device, conv_dtype)
 
@@ -399,6 +487,40 @@ def _flatten(tree: dict, prefix: Tuple[str, ...] = ()):
             yield prefix + (key,), value
 
 
+def tree_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A flax tree of arrays (one collection) -> {state-dict name: tensor}:
+    conv kernels HWIO -> OIHW, a Dense kernel transposed, every other
+    leaf under its own name."""
+    state = {}
+    for path, value in _flatten(tree):
+        arr = np.asarray(value)
+        leaf = path[-1]
+        if leaf == "kernel":
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            leaf = "weight"
+        key = ".".join(path[:-1] + (leaf,))
+        state[key] = torch.from_numpy(np.array(arr, order="C"))
+    return state
+
+
+def tree_to_flax(state: Dict[str, torch.Tensor]) -> dict:
+    """{state-dict name: tensor} -> the flax tree of float32 numpy arrays
+    (the inverse of `tree_from_flax`)."""
+    tree: dict = {}
+    for name, tensor in state.items():
+        path = name.split(".")
+        leaf = path[-1]
+        arr = tensor.detach().cpu().float().numpy()
+        if leaf == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            leaf = "kernel"
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
 def from_flax_variables(variables: Dict[str, dict]) -> Dict[str, torch.Tensor]:
     """The JAX package's {params, batch_stats} tree of arrays -> a state
     dict for `InceptionV3`: conv kernels HWIO -> OIHW, the Dense kernel
@@ -408,32 +530,16 @@ def from_flax_variables(variables: Dict[str, dict]) -> Dict[str, torch.Tensor]:
         raise ValueError(f"unexpected variable collections {sorted(unknown)}")
     state = {}
     for collection in ("params", "batch_stats"):
-        for path, value in _flatten(variables.get(collection, {})):
-            arr = np.asarray(value)
-            leaf = path[-1]
-            if leaf == "kernel":
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-                leaf = "weight"
-            key = ".".join(path[:-1] + (leaf,))
-            state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        state.update(tree_from_flax(variables.get(collection, {})))
     return state
 
 
 def to_flax_variables(model: nn.Module) -> Dict[str, dict]:
     """`InceptionV3` weights -> the JAX package's {params, batch_stats}
     tree of float32 numpy arrays (batch_stats omitted once folded)."""
-    variables: Dict[str, dict] = {}
-    for name, tensor in model.state_dict().items():
-        path = name.split(".")
-        leaf = path[-1]
-        arr = tensor.detach().cpu().float().numpy()
-        if leaf == "weight":
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
-            leaf = "kernel"
-        collection = "batch_stats" if leaf in ("mean", "var") else "params"
-        node = variables.setdefault(collection, {})
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(arr)
+    params = dict(model.named_parameters())
+    buffers = dict(model.named_buffers())
+    variables = {"params": tree_to_flax(params)}
+    if buffers:
+        variables["batch_stats"] = tree_to_flax(buffers)
     return variables
-

@@ -45,7 +45,10 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "realign.realigner", "realign.ssw", "realign.window_selector",
     "scripts.call_variants", "scripts.make_examples",
     "scripts.postprocess_variants", "scripts.run_deepvariant",
+    "scripts.train",
     "testing.cram_writer", "testing.synthetic",
+    "training.config", "training.data", "training.metrics",
+    "training.train", "training.train_resident",
     "utils.resources",
 ))
 
@@ -81,6 +84,27 @@ rc = cli.main(["--examples", path, "--outfile", os.path.join(d, "cvo.gz"),
                "--allow_uninitialized_model", "--device", "cpu",
                "--batch_size", "2"])
 assert rc == 0, rc
+# The train CLI on the CPU: labeled examples, one step, one tune batch.
+from deepvariant_tpu_torch.scripts import train as train_cli
+from deepvariant_tpu_torch.training.data import DatasetConfig
+labeled = os.path.join(d, "train.tfrecord")
+with TFRecordWriter(labeled) as w:
+    for i in range(2):
+        v = Variant(reference_name="chr1", start=10 + i, end=11 + i,
+                    reference_bases="A", alternate_bases=["C"])
+        w.write(examples.make_example(
+            v, rng.randint(0, 255, (100, 221, 7), np.uint8), [0],
+            f"chr1:{11 + i}-{12 + i}", label=i))
+examples.write_example_info(labeled, (100, 221, 7), WGS_CHANNELS)
+DatasetConfig(tfrecord_path=labeled, num_examples=2).write(
+    os.path.join(d, "ds.pbtxt"))
+rc = train_cli.main([
+    "--config", "wgs_test", "--train_dataset_config",
+    os.path.join(d, "ds.pbtxt"), "--tune_dataset_config",
+    os.path.join(d, "ds.pbtxt"), "--experiment_dir", os.path.join(d, "exp"),
+    "--batch_size", "2", "--num_epochs", "1", "--device", "cpu"])
+assert rc == 0, rc
+assert os.path.exists(os.path.join(d, "exp", "checkpoints", "best.msgpack"))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
 assert not bad, bad
@@ -190,7 +214,8 @@ def test_cram_training_run_without_jax(tmp_path):
     assert "clean" in out.stdout
 
 
-@pytest.mark.parametrize("script", ["make_examples", "run_deepvariant"])
+@pytest.mark.parametrize("script", ["make_examples", "run_deepvariant",
+                                    "train"])
 def test_clis_answer_help_without_jax(script, tmp_path):
     """`python -m deepvariant_tpu_torch.scripts.<script> --help` with the
     forbidden packages made unimportable (stand-ins that raise on import
