@@ -198,7 +198,43 @@ Phases:
      autotuner on (the port leaves it off); then torch.profiler over
      three bfloat16 steps: the device's busy share and the ops that take
      its time. The paint kernel must not be launched in phase 14.
- 15. One JSON line per the kernels, the card's name and power limit, and
+ 15. The small model, run_oracle_inference, the Keras import, export and
+     stem rewrites, on phase 11's sample with phase 13's truth VCF and
+     BED (rewritten from the same seed) and phase 14's checkpoint.
+     (A) make_examples --mode training --write_small_model_examples
+     (window 51) gives the training rows; the train_small_model CLI
+     (`--config wgs`, 750x750, on the card) writes small_model.msgpack;
+     the training loop (`small_model.train.fit`, 10 epochs on those
+     rows from one init) in float32 on the card, held to float64 runs on
+     the card and on the CPU: the float32 update within
+     SMALL_MODEL_F64_RTOL of each (relative L2), the two float64 runs
+     within SMALL_MODEL_F64_PAIR_RTOL, and a TF32 and a bfloat16 control
+     on the card beyond SMALL_MODEL_F64_RTOL; then the wgs config's train
+     step timed at its batch of 1024 on 8,192 seeded rows held on the
+     card (CUDA events over back-to-back steps): ms/step, rows/s and the
+     share of the float32 peak. (B) the
+     gate on the main path, its GQ threshold the median phred of its
+     calls on the rows: the runner in this process (its CVOs more than
+     0 and fewer than phase 11's plans, and the plans left exactly phase
+     11's minus the accepted alt sets), then run_deepvariant
+     --call_small_model_examples staged and `--stream` (device encoder)
+     to a VCF and a gVCF with phase 11's checks: the stream paints the
+     runner's plans in ceil(plans / 512) launches, its small-model CVOs
+     and the staged ones are the runner's, and the two VCFs differ only
+     where bfloat16 moved a rounded probability; the plan form on these
+     plans bit-exact against its plain version. (C) export_model from
+     phase 14's best.msgpack, then call_variants --checkpoint <exported>
+     on the card: the CVOs of best.msgpack with --use_ema, byte for byte;
+     a seeded numpy stand-in of keras InceptionV3 layers through
+     keras_import on the card equals, weights and probabilities, the
+     model with the same weights placed by hand (keras's creation order
+     onto the module's declared ConvBN order); InceptionV3(7) folded, padded to 8 channels and
+     rewritten to the space-to-depth stem equals the plain graph in
+     float32 within S2D_ATOL; the bfloat16 forward at batch 512 with and
+     without the rewrites, timed. (D) run_oracle_inference (2 shards):
+     every confident truth record at a biallelic oracle record is called
+     with its truth genotype.
+ 16. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
@@ -209,8 +245,9 @@ paints nothing), around each `--stream` run of phase 11 (the
 host-encode one must launch none), around route A's stream in phase 12
 and around the whole of route B (which must launch none), in phase 13
 around route A's `--stream` run and around the painting of route B's
-labeled plans, and around the whole of phase 14 (training paints
-nothing: it must count 0); the
+labeled plans, around the whole of phase 14 (training paints
+nothing: it must count 0), and in phase 15 around route B's `--stream`
+run; the
 comparisons of phase 2 and of the checks after the paths are not
 counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
@@ -361,6 +398,20 @@ TRAIN_BATCH = 512
 TRAIN_TIMINGS = (("bfloat16", 1, 10, 3), ("bfloat16", 4, 4, 1),
                  ("float32", 1, 4, 1), ("float32", 4, 2, 1))
 BF16_PEAK_FLOPS = 989e12       # H100 SXM dense bf16 (NVIDIA's data sheet)
+# Phase 15: the small model, run_oracle_inference, the Keras import, export
+# and stem rewrites.
+SMALL_MODEL_WINDOW = 51        # the make_examples CLI's context window
+# The loop's float32 params against float64's (relative L2 of the update,
+# 10 epochs on phase 15's 50 rows), measured on the CPU: float32 1.03e-5,
+# float64 across thread counts 5.7e-15, bfloat16 0.708; on the card (the
+# float32 bundle against the float64 one) 5.88e-6. The limits are about
+# 5 times the float32 reading and far above float64's.
+SMALL_MODEL_F64_RTOL = 5e-5
+SMALL_MODEL_F64_PAIR_RTOL = 1e-10
+SMALL_MODEL_TIMING_ROWS = 8192
+SMALL_MODEL_TIMING_STEPS = (20, 3)   # timed steps, warm-up steps
+FP32_PEAK_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
+S2D_ATOL = 1e-4                # folded + padded + s2d vs plain, float32
 PAINT_OPS_PER_PIXEL = 10         # min, mul, div (quality) + 7 mask muls
 
 
@@ -3458,6 +3509,496 @@ def phase_training(tmp: str, device, card: str, labeled: dict) -> dict:
     return numbers
 
 
+def small_model_distance(got: dict, want: dict, init: dict) -> float:
+    """Relative L2 distance between two small-model runs' moves from
+    `init` (the flax tree both started from), over every leaf."""
+    from deepvariant_tpu_torch.small_model.model import to_module_state
+
+    start = {k: v.double().numpy()
+             for k, v in to_module_state(init).items()}
+    num = sum(float(np.sum((got[k] - want[k]) ** 2)) for k in start)
+    den = sum(float(np.sum((want[k] - start[k]) ** 2)) for k in start)
+    return (num / den) ** 0.5
+
+
+def time_small_model_steps(n_features: int, device, card: str) -> dict:
+    """ms per train step of the wgs small model (750x750, adamw) at its
+    batch of 1024, back to back on the card (CUDA events), each step's
+    batch gathered by index from SMALL_MODEL_TIMING_ROWS seeded rows
+    held on the card, as `small_model.train.fit` gathers it."""
+    import torch
+
+    from deepvariant_tpu_torch.small_model import train as sm_train
+    from deepvariant_tpu_torch.small_model.model import create_small_model
+
+    config = sm_train.get_config("wgs")
+    batch, n = config.batch_size, SMALL_MODEL_TIMING_ROWS
+    steps, warmup = SMALL_MODEL_TIMING_STEPS
+    rng = np.random.RandomState(SEED + 17)
+    rows = rng.randint(0, 60, (n, n_features)).astype(np.float32)
+    rows = (rows - rows.mean(axis=0)) / rows.std(axis=0)
+    model, _ = create_small_model(n_features, config.hidden_layer_sizes,
+                                  seed=SEED)
+    model = model.to(device)
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    optimizer = sm_train.make_optimizer(config, n // batch)
+    opt_state = optimizer.init(params)
+    x = torch.from_numpy(rows).to(device)
+    y = torch.from_numpy(rng.randint(0, 3, n)).to(device)
+    order = [torch.from_numpy(rng.permutation(n)[:batch]).to(device)
+             for _ in range(steps + warmup)]
+    for idx in order[:warmup]:
+        params, opt_state, loss = sm_train.train_step(
+            model, optimizer, params, opt_state, x[idx], y[idx])
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for idx in order[warmup:]:
+        params, opt_state, loss = sm_train.train_step(
+            model, optimizer, params, opt_state, x[idx], y[idx])
+        losses.append(loss)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / steps
+    mean_loss = float(torch.stack(losses).mean())
+    if not math.isfinite(mean_loss):
+        raise AssertionError(f"small-model train steps: loss {mean_loss}")
+    sizes = [n_features, *config.hidden_layer_sizes, 3]
+    flops = 3 * 2 * batch * sum(a * b for a, b in zip(sizes, sizes[1:]))
+    share = flops / (ms / 1e3) / FP32_PEAK_FLOPS
+    print(f"[small-model timing] wgs config ({n_features} features, "
+          f"750x750, adamw), batch {batch} from {n} seeded rows on the "
+          f"card: {ms:.4f} ms/step, {batch / (ms / 1e3):.0f} rows/s, "
+          f"{flops / 1e9:.3f} GFLOP/step = {share:.2%} of the float32 peak "
+          f"(67 TFLOP/s); mean loss {mean_loss:.4f} over {steps} steps "
+          f"after {warmup} warm-up; {card}")
+    return {"small_model_step_ms": ms,
+            "small_model_rows_per_s": batch / (ms / 1e3),
+            "small_model_fp32_peak_share": share}
+
+
+def keras_by_hand(stand_in, channels: int):
+    """InceptionV3(`channels`) with a keras model's weights placed by
+    hand, independent of `models.keras_import`: the i-th Conv2D and
+    BatchNormalization that keras created (conv2d_i,
+    batch_normalization_i) go to the i-th ConvBN the module declares,
+    the kernel (kh, kw, cin, cout) permuted to (cout, cin, kh, kw); the
+    dense layer to the head, its kernel transposed."""
+    import torch
+
+    from deepvariant_tpu_torch.models import inception_v3 as iv3
+
+    layers = {}
+
+    def walk(model):
+        for layer in model.layers:
+            if hasattr(layer, "layers"):
+                walk(layer)
+            else:
+                layers[layer.name] = layer.get_weights()
+
+    walk(stand_in)
+    model = iv3.InceptionV3(channels)
+    units = [m for m in model.modules() if isinstance(m, iv3.ConvBN)]
+    if sum(name.startswith("conv2d") for name in layers) != len(units):
+        raise AssertionError(f"keras layers {sorted(layers)} against "
+                             f"{len(units)} ConvBN units")
+    with torch.no_grad():
+        for i, unit in enumerate(units):
+            suffix = f"_{i}" if i else ""
+            kernel, = layers["conv2d" + suffix]
+            beta, mean, var = layers["batch_normalization" + suffix]
+            unit.conv.weight.copy_(torch.from_numpy(kernel).permute(
+                3, 2, 0, 1))
+            unit.bn.bias.copy_(torch.from_numpy(beta))
+            unit.bn.mean.copy_(torch.from_numpy(mean))
+            unit.bn.var.copy_(torch.from_numpy(var))
+        kernel, bias = layers["dense"]
+        model.classification.weight.copy_(torch.from_numpy(kernel).T)
+        model.classification.bias.copy_(torch.from_numpy(bias))
+    return model
+
+
+def gate_threshold(bundle_dir: str, rows) -> float:
+    """The median phred of the trained gate's calls on `rows`, rounded
+    down to a tenth: a threshold that accepts about half of them."""
+    from deepvariant_tpu_torch.core import genomics_math
+    from deepvariant_tpu_torch.small_model.model import (
+        SmallModelVariantCaller,
+        create_small_model,
+        load_bundle,
+    )
+
+    _, variables = create_small_model(rows.shape[1])
+    variables, mean, scale = load_bundle(bundle_dir, rows.shape[1],
+                                         variables)
+    caller = SmallModelVariantCaller(None, variables)
+    caller.feature_mean, caller.feature_scale = mean, scale
+    probs = caller.classify(rows)
+    phreds = [genomics_math.ptrue_to_bounded_phred(float(p.max() / p.sum()))
+              for p in probs]
+    return math.floor(statistics.median(phreds) * 10) / 10
+
+
+def phase_small_model(tmp: str, device, card: str, bam_route: dict,
+                      labeled: dict, checkpoint_dir: str):
+    """Phase 15: the small model, run_oracle_inference, and the Keras
+    import, export and stem rewrites, on phase 11's sample (phase 13's
+    truth VCF and BED, rewritten from the same seed) and phase 14's
+    trained checkpoint. Returns (numbers, the kernels-line entry of the
+    gated stream with its launches)."""
+    import torch
+
+    from deepvariant_tpu_torch.calling.call_variants import read_cvos
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.core.sharded_files import glob_sharded_inputs
+    from deepvariant_tpu_torch.make_examples.core import (
+        MakeExamplesOptions,
+        make_examples_runner,
+    )
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.models import inception_v3 as iv3
+    from deepvariant_tpu_torch.models.keras_import import (
+        load_keras_into_model,
+    )
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.scripts import call_variants as cv_cli
+    from deepvariant_tpu_torch.scripts import export_model
+    from deepvariant_tpu_torch.scripts import make_examples as me_cli
+    from deepvariant_tpu_torch.scripts import run_oracle_inference
+    from deepvariant_tpu_torch.scripts import train_small_model as tsm_cli
+    from deepvariant_tpu_torch.small_model import train as sm_train
+    from deepvariant_tpu_torch.small_model.model import create_small_model
+    from deepvariant_tpu_torch.testing import synthetic
+
+    phase_start = time.time()
+    tag = "small-model"
+    directory = os.path.join(tmp, tag)
+    os.makedirs(directory)
+    sample, paths = bam_route["sample"], bam_route["paths"]
+    truth = synthetic.write_truth_inputs(sample, directory, seed=SEED + 13)
+    numbers = {}
+
+    # -- A: training rows, then the small model trained on the card --
+    atag = tag + " A"
+    rows_path = os.path.join(directory, "rows.tfrecord")
+    start = time.time()
+    quiet(me_cli.main, [
+        "--mode", "training", "--ref", paths["ref"], "--reads",
+        paths["reads"], "--model_preset", "WGS", "--truth_variants",
+        truth["truth"], "--confident_regions", truth["confident"],
+        "--examples", os.path.join(directory, "labeled.tfrecord"),
+        "--write_small_model_examples", "--small_model_examples", rows_path,
+        "--small_model_vaf_context_window_size",
+        str(SMALL_MODEL_WINDOW)], atag + " make_examples")
+    rows_s = time.time() - start
+    rows, labels = sm_train.read_training_examples(rows_path)
+    n, n_features = rows.shape
+    print(f"[{atag}] make_examples --mode training "
+          f"--write_small_model_examples (window {SMALL_MODEL_WINDOW}): "
+          f"{n} rows of {n_features} features in {rows_s:.1f} s, labels "
+          f"0/1/2 {np.bincount(labels, minlength=3).tolist()}")
+    if n < 16 or n_features != 19 + SMALL_MODEL_WINDOW:
+        raise AssertionError(f"{atag}: {n} rows of {n_features} features")
+    bundle = os.path.join(directory, "small_model")
+    start = time.time()
+    quiet(tsm_cli.main, ["--train_examples", rows_path, "--output_dir",
+                         bundle, "--config", "wgs"], atag + " train CLI")
+    cli_s = time.time() - start
+    with open(os.path.join(bundle, "small_model.json")) as f:
+        info = json.load(f)
+    if info["hidden_layer_sizes"] != [750, 750] or \
+            info["num_features"] != n_features or \
+            not math.isfinite(info["metrics"]["train_loss"]):
+        raise AssertionError(f"{atag}: the train CLI wrote {info}")
+    # The training loop on the card, held to float64 on the card and on
+    # the CPU from one init over the same normalized rows; TF32 and
+    # bfloat16 controls show what the limit would catch.
+    config = sm_train.get_config("wgs")
+    mean, scale = rows.mean(axis=0), rows.std(axis=0)
+    scale[scale == 0] = 1.0
+    normalized = (rows - mean) / scale
+    _, init = create_small_model(n_features, seed=SEED)
+    runs = {}
+    for name, where, dtype in (
+            ("card f32", device, torch.float32),
+            ("card f64", device, torch.float64),
+            ("CPU f64", "cpu", torch.float64),
+            ("card TF32", device, torch.float32),
+            ("card bf16", device, torch.bfloat16)):
+        torch.backends.cuda.matmul.allow_tf32 = name == "card TF32"
+        try:
+            _, params, _ = sm_train.fit(normalized, labels, config,
+                                        device=where, initial_variables=init,
+                                        dtype=dtype)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        runs[name] = {k: v.double().cpu().numpy() for k, v in params.items()}
+    distances = {f"{a} vs {b}": small_model_distance(runs[a], runs[b], init)
+                 for a, b in (("card f32", "card f64"),
+                              ("card f32", "CPU f64"),
+                              ("card f64", "CPU f64"),
+                              ("card TF32", "card f64"),
+                              ("card bf16", "card f64"))}
+    print(f"[{atag}] train_small_model --config wgs --device cuda (750x750, "
+          f"{info['metrics']['epoch'] + 1} epochs of batch {min(1024, n)}) "
+          f"in {cli_s:.2f} s, train accuracy "
+          f"{info['metrics']['train_accuracy']:.3f}; the loop's params "
+          f"after {config.num_epochs} epochs from one init, relative L2 of "
+          f"the update: " + ", ".join(f"{k} {v:.3e}"
+                                      for k, v in distances.items())
+          + f" (limits: float32 {SMALL_MODEL_F64_RTOL}, float64 "
+          f"{SMALL_MODEL_F64_PAIR_RTOL}; the controls must exceed "
+          f"{SMALL_MODEL_F64_RTOL}); {card}")
+    if not (distances["card f32 vs card f64"] <= SMALL_MODEL_F64_RTOL
+            and distances["card f32 vs CPU f64"] <= SMALL_MODEL_F64_RTOL
+            and distances["card f64 vs CPU f64"]
+            <= SMALL_MODEL_F64_PAIR_RTOL
+            and not distances["card TF32 vs card f64"]
+            <= SMALL_MODEL_F64_RTOL
+            and not distances["card bf16 vs card f64"]
+            <= SMALL_MODEL_F64_RTOL):
+        raise AssertionError(f"{atag}: the small model's training moved: "
+                             f"{distances}")
+    timing = time_small_model_steps(n_features, device, card)
+    numbers.update({"small_model_rows": n, "small_model_features": n_features,
+                    "small_model_train_cli_s": cli_s,
+                    "small_model_distances": distances, **timing})
+
+    # -- B: the gate on the main path, staged and streamed --
+    btag = tag + " B"
+    threshold = gate_threshold(bundle, rows)
+    gate_flags = (f"small_model_snp_gq_threshold={threshold},"
+                  f"small_model_indel_gq_threshold={threshold}")
+    options = apply_model_preset(MakeExamplesOptions(
+        reads_filename=paths["reads"], ref_filename=paths["ref"],
+        call_small_model_examples=True, trained_small_model_path=bundle,
+        small_model_snp_gq_threshold=threshold,
+        small_model_indel_gq_threshold=threshold,
+        small_model_vaf_context_window_size=SMALL_MODEL_WINDOW), "WGS")
+    gated, sm_cvos = [], []
+    counts = make_examples_runner(options, plan_sink=gated.append,
+                                  small_model_cvo_sink=sm_cvos.append)
+    ungated = bam_route["plans"]
+    print(f"[{btag}] the gate at GQ {threshold} (the median phred of its "
+          f"calls on the training rows): {len(sm_cvos)} small-model CVOs, "
+          f"{len(gated)} plans left of phase 11's {len(ungated)} "
+          f"(the runner's counts {counts})")
+    if not 0 < len(sm_cvos) < len(ungated) or \
+            len(gated) != len(ungated) - len(sm_cvos):
+        raise AssertionError(f"{btag}: {len(sm_cvos)} CVOs, {len(gated)} "
+                             f"plans of {len(ungated)}")
+
+    def argv(name, *more):
+        return ["--ref", paths["ref"], "--reads", paths["reads"],
+                "--output_vcf", os.path.join(directory, f"{name}.vcf.gz"),
+                "--output_gvcf", os.path.join(directory, f"{name}.g.vcf.gz"),
+                "--checkpoint", bam_route["checkpoint"], "--batch_size",
+                str(BATCH), "--num_shards", str(STREAM_WORKERS),
+                "--intermediate_results_dir", os.path.join(directory, name),
+                "--call_small_model_examples",
+                "--trained_small_model_path", bundle,
+                "--make_examples_extra_args", gate_flags, *more]
+
+    _, staged_s, _ = run_deepvariant_cli(argv("staged"), btag + " staged",
+                                         card)
+    staged_dir = os.path.join(directory, "staged")
+    staged_sm = list(read_cvos(os.path.join(
+        staged_dir, f"small_model_cvos.tfrecord@{STREAM_WORKERS}.gz")))
+    staged_cvos = list(read_cvos(os.path.join(
+        staged_dir, "call_variants_output.tfrecord.gz"))) + staged_sm
+    seen, restore = record_stream_cvos()
+    pp.paint_pileup.launches = 0
+    try:
+        text, stream_s, _ = run_deepvariant_cli(
+            argv("stream", "--stream"), btag + " stream", card)
+    finally:
+        restore()
+    launches = pp.paint_pileup.launches
+    (stream_cvos, stats), = seen
+    painted = stats.num_examples
+    batches = -(-painted // BATCH)
+    if "encoder=device" not in text or painted != len(gated) or \
+            launches != batches or stats.num_small_model_cvos != \
+            len(sm_cvos) or len(staged_sm) != len(sm_cvos) or \
+            sorted(c.encode() for c in staged_sm) != \
+            sorted(c.encode() for c in sm_cvos):
+        raise AssertionError(
+            f"{btag}: the stream painted {painted} plans (the runner "
+            f"{len(gated)}) in {launches} launches for {batches} batches; "
+            f"small-model CVOs: stream {stats.num_small_model_cvos}, staged "
+            f"{len(staged_sm)}, runner {len(sm_cvos)}")
+    vcfs = {}
+    for name, cvos in (("staged", staged_cvos), ("stream", stream_cvos)):
+        vcfs[name] = os.path.join(directory, f"{name}.vcf.gz")
+        check_vcf(vcfs[name], cvos, paths["ref"], "default",
+                  f"{btag} {name}", card)
+        check_gvcf(os.path.join(directory, f"{name}.g.vcf.gz"), vcfs[name],
+                   paths["ref"], f"{btag} {name}", card)
+    moved = vcfs_agree(vcfs["staged"], staged_cvos, vcfs["stream"],
+                       stream_cvos, btag + " staged VCF vs streamed VCF")
+    predictor = PlanPredictor(bam_route["model"], options.pileup_options,
+                              batch_size=BATCH, device=device)
+    entry = from_files_entry("pileup_paint_plan_small_model_gate", predictor,
+                             [p.plan for p in gated], btag, card)
+    entry["launches"] = launches
+    print(f"[{btag}] run_deepvariant --call_small_model_examples: staged "
+          f"{staged_s:.2f} s, streamed {stream_s:.2f} s; {len(sm_cvos)} "
+          f"small-model CVOs; {painted} plans painted in {launches} launches "
+          f"of the plan form; VCF records moved by bfloat16: {moved}; "
+          f"{card}")
+    numbers.update({"small_model_gate_threshold": threshold,
+                    "small_model_cvos": len(sm_cvos),
+                    "small_model_plans_painted": painted,
+                    "small_model_plans_ungated": len(ungated),
+                    "small_model_staged_s": staged_s,
+                    "small_model_stream_s": stream_s,
+                    "small_model_vcf_records_moved_by_bf16": moved,
+                    "small_model_plan_form_launches": launches})
+
+    # -- C: export, the Keras import, the stem rewrites --
+    ctag = tag + " C"
+    exported = os.path.join(directory, "exported")
+    quiet(export_model.main, ["--checkpoint", os.path.join(
+        checkpoint_dir, "best.msgpack"), "--output_dir", exported],
+        ctag + " export_model")
+    cvo_files = {}
+    for name, ckpt in (("best", checkpoint_dir), ("exported", exported)):
+        cvo_files[name] = os.path.join(directory, f"cvo-{name}.tfrecord")
+        quiet(cv_cli.main, ["--examples", labeled["train"], "--outfile",
+                            cvo_files[name], "--checkpoint", ckpt,
+                            "--batch_size", str(BATCH), "--use_ema"],
+              f"{ctag} call_variants {name}")
+    got = [c.encode() for c in read_cvos(cvo_files["exported"])]
+    want = [c.encode() for c in read_cvos(cvo_files["best"])]
+    print(f"[{ctag}] export_model from phase 14's best.msgpack (EMA), then "
+          f"call_variants --checkpoint <exported> on the card: {len(got)} "
+          f"CVOs, equal to best.msgpack's with --use_ema: {got == want}")
+    if got != want or not got:
+        raise AssertionError(f"{ctag}: the exported bundle's CVOs differ")
+    # A numpy stand-in of keras layers through the import to the card,
+    # against the same weights placed by hand.
+    stand_in = synthetic.keras_inception_stand_in(SEED, SHAPE[2])
+    imported, _ = load_keras_into_model(stand_in, SHAPE[2], device=device)
+    direct = iv3.prepare_for_inference(keras_by_hand(stand_in, SHAPE[2]),
+                                       device, torch.float32)
+    rng = np.random.RandomState(SEED + 15)
+    images = torch.from_numpy(rng.randint(0, 256, (16,) + SHAPE).astype(
+        np.uint8)).to(device)
+    x = iv3.normalize_pileup(images, torch.float32)
+    want_state = direct.state_dict()
+    got_state = imported.state_dict()
+    same_weights = set(got_state) == set(want_state) and all(
+        torch.equal(got_state[k], want_state[k]) for k in want_state)
+    with torch.no_grad():
+        same = same_weights and torch.equal(imported(x), direct(x))
+    print(f"[{ctag}] a seeded numpy stand-in of keras InceptionV3 layers "
+          f"through keras_import on the card == its weights placed by hand "
+          f"(keras's creation order onto the module's declared order, "
+          f"kernels transposed by hand), weights and probabilities: {same}")
+    if not same:
+        raise AssertionError(f"{ctag}: the keras import differs")
+    # The stem rewrites: folded, padded to 8 channels, space-to-depth.
+    plain = iv3.prepare_for_inference(seeded_model(SHAPE[2]), device,
+                                      torch.float32)
+    folded = iv3.fold_batch_norm(plain)
+    rewritten = iv3.convert_stem_to_s2d(iv3.pad_stem_input_channels(
+        folded, 8))
+    images8 = torch.cat([images, torch.zeros_like(images[..., :1])], -1)
+    with torch.no_grad():
+        base = plain(x)
+        s2d_err = float((rewritten(iv3.normalize_pileup(
+            images8, torch.float32)) - base).abs().max())
+    print(f"[{ctag}] folded + padded + space-to-depth InceptionV3(7) on the "
+          f"card against the plain graph, float32: max |dp| {s2d_err:.2e} "
+          f"(limit {S2D_ATOL})")
+    if s2d_err > S2D_ATOL:
+        raise AssertionError(f"{ctag}: the stem rewrites moved the "
+                             f"probabilities by {s2d_err}")
+    batch = torch.from_numpy(np.random.RandomState(SEED + 16).randint(
+        0, 256, (BATCH,) + SHAPE).astype(np.uint8)).to(device)
+    batch8 = torch.cat([batch, torch.zeros_like(batch[..., :1])], -1)
+    bf16 = {}
+    for name, model, data in (
+            ("folded", folded, batch),
+            ("folded_pad8_s2d", rewritten, batch8)):
+        model = iv3.prepare_for_inference(model, device, torch.bfloat16)
+        inputs = iv3.normalize_pileup(data, torch.bfloat16)
+        with torch.inference_mode():
+            bf16[name] = device_ms(lambda: model(inputs), reps=5, repeats=3)
+    print(f"[{ctag}] bfloat16 forward at batch {BATCH}: folded "
+          f"{bf16['folded']:.3f} ms, folded + padded + space-to-depth "
+          f"{bf16['folded_pad8_s2d']:.3f} ms; {card}")
+    numbers.update({"s2d_max_abs_err": s2d_err,
+                    "bf16_forward_ms": bf16})
+
+    # -- D: run_oracle_inference --
+    dtag = tag + " D"
+    oracle_vcf = os.path.join(directory, "oracle.vcf.gz")
+    start = time.time()
+    quiet(run_oracle_inference.main, [
+        "--model_type", "WGS", "--ref", paths["ref"], "--reads",
+        paths["reads"], "--output_vcf", oracle_vcf, "--truth_variants",
+        truth["truth"], "--confident_regions", truth["confident"],
+        "--num_shards", "2", "--intermediate_results_dir",
+        os.path.join(directory, "oracle")], dtag)
+    oracle_s = time.time() - start
+    matched, missing, multi = oracle_agreement(oracle_vcf, truth, dtag)
+    print(f"[{dtag}] run_oracle_inference (2 shards) in {oracle_s:.1f} s: "
+          f"{matched} confident truth records called with their genotype, "
+          f"{multi} at multiallelic candidates (one alt set's record), "
+          f"{missing} without a candidate; {card}")
+    numbers.update({"oracle_s": oracle_s, "oracle_matched": matched,
+                    "oracle_multiallelic": multi,
+                    "oracle_without_candidate": missing,
+                    "phase15_s": time.time() - phase_start})
+    print(f"[{tag}] phase 15 {numbers['phase15_s']:.1f} s; {card}")
+    return numbers, entry
+
+
+def oracle_agreement(oracle_vcf: str, truth: dict, tag: str) -> tuple:
+    """Every confident truth record at a biallelic oracle record must be
+    called with its truth genotype. Returns (matched, truth records with
+    no candidate, records at multiallelic candidates)."""
+    confident = []
+    with open(truth["confident"]) as f:
+        for line in f:
+            name, start, end = line.split()[:3]
+            confident.append((name, int(start), int(end)))
+
+    def alleles(fields):
+        bases = [fields[3]] + fields[4].split(",")
+        gt = fields[9].split(":")[0].replace("|", "/").split("/")
+        return sorted(bases[int(i)] for i in gt if i != ".")
+
+    want = {}
+    for line in vcf_records(truth["truth"]):
+        fields = line.split("\t")
+        pos = int(fields[1]) - 1
+        if fields[6] == "RefCall" or not any(
+                n == fields[0] and s <= pos < e for n, s, e in confident):
+            continue
+        want[(fields[0], pos)] = alleles(fields)
+    matched = multi = 0
+    for line in vcf_records(oracle_vcf):
+        fields = line.split("\t")
+        key = (fields[0], int(fields[1]) - 1)
+        if key not in want:
+            continue
+        expect = want.pop(key)
+        if alleles(fields) == expect:
+            matched += 1
+        elif "," in fields[4]:
+            multi += 1
+        else:
+            raise AssertionError(f"{tag}: the oracle calls {line} against "
+                                 f"the truth's {expect}")
+    if matched < 10:
+        raise AssertionError(f"{tag}: {matched} truth records called")
+    return matched, len(want), multi
+
+
 def main() -> int:
     import torch
 
@@ -3544,13 +4085,21 @@ def main() -> int:
         # VCF, and its labeled plans painted on the card.
         cram_numbers, cram_kernels, labeled = phase_cram_training(
             tmp, device, card, bam_route)
-        del bam_route
         summary.update(cram_numbers)
         kernels.extend(cram_kernels)
         # Training on the card: phase 13's labeled examples through the
         # train CLI, call_variants and train_resident; one step against
         # the CPU; ms per step at full width.
         summary.update(phase_training(tmp, device, card, labeled))
+        # The small model on phase 11's sample (rows, training, the gate
+        # on the main path), run_oracle_inference, and the export of phase
+        # 14's checkpoint, the Keras import and the stem rewrites.
+        small_numbers, small_kernel = phase_small_model(
+            tmp, device, card, bam_route, labeled,
+            os.path.join(tmp, "training", "cli", "checkpoints"))
+        del bam_route
+        summary.update(small_numbers)
+        kernels.append(small_kernel)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)

@@ -25,7 +25,13 @@ paints the plans and runs the CNN (calling.plan_predictor).
 `MakeExamplesOptions` has every field of the JAX package's, so options
 print and pickle alike, but an option whose code is not ported yet makes
 `refuse_unported_options` raise NotImplementedError, naming the
-ROADMAP.md item that brings it: the small model and de novo regions.
+ROADMAP.md item that brings it: de novo regions; it also refuses the
+small-model options that the JAX package accepts and never reads, at
+any value but their defaults, and training rows of the small model with
+--phase_reads, which crash the JAX package. The small model's gate
+(small_model/, host numpy: its CVOs to a TFRecord or a sink, the
+candidates it accepts kept from the CNN, partially accepted
+multiallelics left with their other alt sets) and its training rows,
 CRAM input (io/cram.py), training mode with every labeler and its
 `.labeling_metrics.json`, the realigner (realign/), trimmed reads, every
 alt-aligned pileup mode, direct read phasing (phasing/direct_phasing.py,
@@ -543,6 +549,15 @@ def reservoir_sample_indices(
 
 
 _QUEUE = "ROADMAP.md Queue 1 item 3"
+# The small-model options the JAX package accepts and reads nowhere
+# (its gate is built without them, deepvariant_tpu/make_examples/
+# core.py:705-711), with the only
+# value the port takes.
+UNREAD_SMALL_MODEL_OPTIONS = {
+    "small_model_call_multiallelics": True,
+    "small_model_emit_all_candidates": False,
+    "small_model_inference_batch_size": 128,
+}
 
 
 def refuse_unported_options(options: "MakeExamplesOptions") -> None:
@@ -555,11 +570,21 @@ def refuse_unported_options(options: "MakeExamplesOptions") -> None:
         raise NotImplementedError(
             f"{what} is not ported yet; {queue} ({item})")
 
-    if o.call_small_model_examples or o.write_small_model_examples or \
-            o.trained_small_model_path or o.small_model_cvo_filename or \
-            o.small_model_examples_filename:
-        refuse("the small model", "small_model",
-               queue="ROADMAP.md Queue 1 item 6")
+    for name, default in UNREAD_SMALL_MODEL_OPTIONS.items():
+        if getattr(o, name) != default:
+            # Nothing accepted and then ignored.
+            raise NotImplementedError(
+                f"{name}={getattr(o, name)!r}: the JAX package accepts "
+                f"this option and reads it nowhere, so the port runs only "
+                f"its default {default!r}; ROADMAP.md Queue 3 (unread "
+                "small-model options)")
+    if o.write_small_model_examples and o.phase_reads:
+        # The JAX package encodes the haplotype copies of a training row
+        # without the reads' phases and raises IndexError.
+        raise NotImplementedError(
+            "--write_small_model_examples with --phase_reads crashes the "
+            "JAX package (IndexError) and is refused; ROADMAP.md Queue 3 "
+            "(small-model training rows with --phase_reads)")
     if o.denovo_regions:
         # The JAX package accepts --denovo_regions and reads it nowhere:
         # no denovo_label is ever written.
@@ -711,6 +736,47 @@ class RegionProcessor:
             self._exclude_variants_reader = VcfReader(
                 options.exclude_variants_vcf_filename
             )
+        self.small_model_caller = None
+        self.small_model_factory = None
+        if options.write_small_model_examples or \
+                options.call_small_model_examples:
+            from deepvariant_tpu_torch.small_model.features import (
+                SmallModelExampleFactory,
+            )
+
+            self.small_model_factory = SmallModelExampleFactory(
+                vaf_context_window_size=(
+                    options.small_model_vaf_context_window_size
+                ),
+                expand_by_haplotype=options.phase_reads,
+            )
+        if options.call_small_model_examples:
+            from deepvariant_tpu_torch.small_model.model import (
+                SmallModelVariantCaller,
+                create_small_model,
+                load_bundle,
+            )
+
+            n_features = len(
+                self.small_model_factory.model_feature_names()
+            )
+            # Without a trained model the gate runs this seeded numpy
+            # init, as the JAX package's does.
+            model, variables = create_small_model(n_features)
+            feature_mean = feature_scale = None
+            if options.trained_small_model_path:
+                variables, feature_mean, feature_scale = load_bundle(
+                    options.trained_small_model_path, n_features,
+                    variables)
+            self.small_model_caller = SmallModelVariantCaller(
+                model, variables,
+                snp_gq_threshold=options.small_model_snp_gq_threshold,
+                indel_gq_threshold=(
+                    options.small_model_indel_gq_threshold
+                ),
+            )
+            self.small_model_caller.feature_mean = feature_mean
+            self.small_model_caller.feature_scale = feature_scale
         self.population_vcf_readers = None
         if options.population_vcf_filenames:
             from deepvariant_tpu_torch.make_examples.allele_frequency import (
@@ -1084,6 +1150,96 @@ class RegionProcessor:
             out = kept
         return out
 
+    def _small_model_context_vafs(self, dv_call) -> Optional[List[int]]:
+        """Context VAF features in offset order
+        (encode_variant_allele_frequency_at_position,
+        make_small_model_examples.py:487-512): candidate map lookups
+        at variant.start + offset, 0 where absent."""
+        w = self.small_model_factory.vaf_context_window_size \
+            if self.small_model_factory else 0
+        if not w:
+            return None
+        half = w // 2
+        start = dv_call.variant.start
+        m = dv_call.allele_frequency_at_position
+        return [m.get(start + o, 0) for o in range(-half, half + 1)]
+
+    def _small_model_gate(self, candidates, batch):
+        """(CVOs, candidate indices that skip the CNN, {candidate index:
+        the alt-index sets left for the CNN}) from the small model's
+        calls (make_examples_core.py:3624-3649 hooks)."""
+        rows = []
+        row_meta = []
+        phases = batch.hp.tolist() if len(batch.hp) == len(batch) \
+            else None
+        for ci, dv_call in enumerate(candidates):
+            ctx = self._small_model_context_vafs(dv_call)
+            for alt_indices in self.small_model_factory \
+                    .alt_index_sets(dv_call):
+                rows.append(self.small_model_factory.encode(
+                    dv_call, alt_indices, batch,
+                    context_vafs=ctx,
+                    read_phases=phases,
+                ))
+                row_meta.append((ci, dv_call, alt_indices))
+        skip_for_cnn: set = set()
+        cnn_allowed_sets: Dict[int, List[Tuple[int, ...]]] = {}
+        if not rows:
+            return [], skip_for_cnn, cnn_allowed_sets
+        result = self.small_model_caller.call_variants(
+            row_meta, np.stack(rows)
+        )
+        # Fully-resolved candidates (every alt-index set accepted) skip
+        # CNN examples entirely; PARTIALLY accepted multiallelics go to
+        # the CNN with only their remaining sets
+        # (make_examples_alt_allele_indices semantics,
+        # small_model/inference.py:186-193 +
+        # make_examples_native.cc:194).
+        accepted_by_ci: Dict[int, set] = {}
+        for ci, alt_set in result.accepted_sets:
+            accepted_by_ci.setdefault(ci, set()).add(alt_set)
+        for ci, dv_call in enumerate(candidates):
+            got = accepted_by_ci.get(ci)
+            if not got:
+                continue
+            remaining = [
+                tuple(s)
+                for s in self.small_model_factory.alt_index_sets(dv_call)
+                if tuple(s) not in got
+            ]
+            if not remaining:
+                skip_for_cnn.add(ci)
+            else:
+                cnn_allowed_sets[ci] = remaining
+        return result.cvos, skip_for_cnn, cnn_allowed_sets
+
+    def _small_model_training_rows(self, candidates, batch,
+                                   labels_by_index) -> List[bytes]:
+        """Training rows of the confidently labeled candidates
+        (write_small_model_examples_in_region, :2015-2050)."""
+        from deepvariant_tpu_torch.small_model.train import (
+            encode_training_example,
+        )
+
+        out = []
+        for idx, dv_call in enumerate(candidates):
+            label = labels_by_index.get(idx)
+            if label is None or not label.is_confident:
+                continue
+            ctx = self._small_model_context_vafs(dv_call)
+            for alt_indices in self.small_model_factory \
+                    .alt_index_sets(dv_call):
+                row = self.small_model_factory.encode(
+                    dv_call, alt_indices, batch, context_vafs=ctx,
+                )
+                out.append(encode_training_example(
+                    [int(v) for v in row],
+                    label.label_for_alt_alleles(list(alt_indices)),
+                    ids=[dv_call.variant.reference_name,
+                         str(dv_call.variant.start)],
+                ))
+        return out
+
     def process(self, region: Range) -> RegionOutputs:
         runtimes: Dict[str, float] = {}
         self.region_number += 1
@@ -1233,6 +1389,17 @@ class RegionProcessor:
                 if region.start <= c.variant.start < region.end
             ]
 
+        # Small-model short-circuit: candidates whose MLP call clears
+        # the GQ threshold emit CVOs directly and skip the CNN.
+        small_model_cvos: List = []
+        skip_for_cnn: set = set()
+        cnn_allowed_sets: Dict[int, List[Tuple[int, ...]]] = {}
+        if self.small_model_caller is not None and candidates:
+            t0 = time.perf_counter()
+            small_model_cvos, skip_for_cnn, cnn_allowed_sets = \
+                self._small_model_gate(candidates, batch)
+            runtimes["small model calls"] = time.perf_counter() - t0
+
         # Training mode: label all candidates of the region at once (the
         # haplotype labeler works on variant groups, reference
         # make_examples_core.py label_variants flow).
@@ -1243,6 +1410,12 @@ class RegionProcessor:
             ))
             labels_by_index = dict(enumerate(labels))
 
+        small_model_examples: List[bytes] = []
+        if (self.options.write_small_model_examples
+                and labels_by_index and self.small_model_factory):
+            small_model_examples = self._small_model_training_rows(
+                candidates, batch, labels_by_index)
+
         t0 = time.perf_counter()
         examples: List[bytes] = []
         plans: List = []
@@ -1251,6 +1424,8 @@ class RegionProcessor:
         for idx, dv_call in enumerate(
             candidates if build_images else ()
         ):
+            if idx in skip_for_cnn:
+                continue
             label = labels_by_index.get(idx)
             if self.options.mode == "training" and (
                 label is None or not label.is_confident
@@ -1269,16 +1444,19 @@ class RegionProcessor:
                     lambda variant, alt_indices, _label=label:
                     _label.label_for_alt_alleles(alt_indices)
                 )
+            allowed_sets = cnn_allowed_sets.get(idx)
             if self.plan_mode:
                 plans.extend(
                     self.examples_builder.build_plans_for_candidate(
                         dv_call, batch, label_fn=label_fn,
+                        allowed_alt_index_sets=allowed_sets,
                     )
                 )
             else:
                 for built in (
                     self.examples_builder.build_examples_for_candidate(
                         dv_call, batch, label_fn=label_fn,
+                        allowed_alt_index_sets=allowed_sets,
                     )
                 ):
                     examples.append(built.encoded)
@@ -1288,7 +1466,8 @@ class RegionProcessor:
         all_candidates = candidates + methylated_ref_sites
         all_candidates.sort(key=lambda c: c.variant.start)
         return RegionOutputs(region, all_candidates, examples, gvcfs,
-                             runtimes, plans=plans)
+                             runtimes, small_model_cvos,
+                             small_model_examples, plans=plans)
 
 
 class OutputsWriter:
@@ -1299,16 +1478,20 @@ class OutputsWriter:
     replacement for the reference's shared-memory example stream
     (stream_examples.h:51). `plan_sink(PlannedExample)` receives each
     device-encode payload; `gvcf_sink(Variant)` receives the reference
-    blocks in place of the gVCF TFRecord.
+    blocks in place of the gVCF TFRecord, and
+    `small_model_cvo_sink(CallVariantsOutput)` the small model's CVOs in
+    place of their TFRecord.
     """
 
     def __init__(self, options: MakeExamplesOptions, example_sink=None,
-                 plan_sink=None, gvcf_sink=None):
+                 plan_sink=None, gvcf_sink=None,
+                 small_model_cvo_sink=None):
         task = options.task_id
         self._writers: Dict[str, TFRecordWriter] = {}
         self._example_sink = example_sink
         self._plan_sink = plan_sink
         self._gvcf_sink = gvcf_sink
+        self._small_model_cvo_sink = small_model_cvo_sink
         if options.examples_filename:
             self.examples_path = maybe_sharded_output_path(
                 options.examples_filename, task
@@ -1321,6 +1504,18 @@ class OutputsWriter:
         if options.gvcf_filename:
             self._writers["gvcfs"] = TFRecordWriter(
                 maybe_sharded_output_path(options.gvcf_filename, task)
+            )
+        if options.small_model_examples_filename:
+            self._writers["small_model_examples"] = TFRecordWriter(
+                maybe_sharded_output_path(
+                    options.small_model_examples_filename, task
+                )
+            )
+        if options.small_model_cvo_filename:
+            self._writers["small_model_cvos"] = TFRecordWriter(
+                maybe_sharded_output_path(
+                    options.small_model_cvo_filename, task
+                )
             )
         self.counts = {name: 0 for name in
                        ("examples", "candidates", "gvcfs",
@@ -1362,6 +1557,24 @@ class OutputsWriter:
             for v in gvcfs:
                 self._gvcf_sink(v)
                 self.counts["gvcfs"] += 1
+
+    def write_small_model_examples(self, *examples):
+        writer = self._writers.get("small_model_examples")
+        if writer:
+            for buf in examples:
+                writer.write(buf)
+                self.counts["small_model_examples"] += 1
+
+    def write_small_model_cvos(self, *cvos):
+        writer = self._writers.get("small_model_cvos")
+        if writer:
+            for cvo in cvos:
+                writer.write(cvo.encode())
+                self.counts["small_model_cvos"] += 1
+        elif self._small_model_cvo_sink is not None:
+            for cvo in cvos:
+                self._small_model_cvo_sink(cvo)
+                self.counts["small_model_cvos"] += 1
 
     def close(self):
         for writer in self._writers.values():
@@ -1530,14 +1743,10 @@ def make_examples_runner(
     instead: the host stops after row planning, and pileup painting then
     runs on the card before the CNN (calling.plan_predictor).
     `gvcf_sink(Variant)` replaces the gVCF TFRecord in fused-stream
-    runs. `small_model_cvo_sink` belongs to the small model, which is
-    not ported, and raises."""
+    runs, and `small_model_cvo_sink(CallVariantsOutput)` the small
+    model's CVO TFRecord."""
     if example_sink is not None and plan_sink is not None:
         raise ValueError("pass example_sink or plan_sink, not both")
-    if small_model_cvo_sink is not None:
-        raise NotImplementedError(
-            "small_model_cvo_sink is not ported yet; ROADMAP.md Queue 1 "
-            "item 6 (small_model)")
     monitor = ResourceMonitor().start()
     processor = RegionProcessor(options)
     if plan_sink is not None:
@@ -1635,7 +1844,8 @@ def make_examples_runner(
     sitelist: List[str] = []
     n_candidates_logged = 0
     with OutputsWriter(options, example_sink=example_sink,
-                       plan_sink=plan_sink, gvcf_sink=gvcf_sink) as writer:
+                       plan_sink=plan_sink, gvcf_sink=gvcf_sink,
+                       small_model_cvo_sink=small_model_cvo_sink) as writer:
         for region in regions:
             outputs = processor.process(region)
             if options.output_sitelist:
@@ -1659,6 +1869,10 @@ def make_examples_runner(
             writer.write_plans(*outputs.plans)
             writer.write_candidates(*outputs.candidates)
             writer.write_gvcfs(*outputs.gvcfs)
+            writer.write_small_model_cvos(*outputs.small_model_cvos)
+            writer.write_small_model_examples(
+                *outputs.small_model_examples
+            )
             if runtime_by_region_path:
                 runtime_rows.append((outputs.region, outputs.runtimes))
         counts = dict(writer.counts)

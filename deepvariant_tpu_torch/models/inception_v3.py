@@ -23,6 +23,12 @@ and `prepare_for_inference` casts the conv weights once instead.
 `module.train()` selects training mode: batch norm normalizes with the
 batch's statistics and moves its running averages the flax way, and the
 head's dropout draws from the `generator` passed to `forward`.
+
+The inference-graph rewrites of the JAX package are here too, model in,
+model out: `fold_batch_norm`, `pad_stem_input_channels`,
+`convert_stem_to_s2d` (the stride-2 3x3 stem as space-to-depth + a 2x2
+stride-1 conv, exact) and `adapt_input_channels` (the stem for another
+channel count, as keras_modeling.py:113-169 does it).
 """
 
 from __future__ import annotations
@@ -132,6 +138,23 @@ class _BoxFilter3x3(torch.autograd.Function):
     def backward(ctx, grad):
         return F.avg_pool2d(grad, 3, stride=1, padding=1,
                             count_include_pad=True)
+
+
+def _space_to_depth_2x2(x):
+    """(B, H, W, C) -> (B, H/2, W/2, 4C), zero-padding odd H/W.
+
+    Channel packing: index ((p*2 + q)*C + c) for in-block offset
+    (p, q), the JAX package's order, so a 2x2 stem kernel carried across
+    from it (kh, kw, 4C, cout) fits as it is.
+    """
+    b, h, w, c = x.shape
+    ph, pw = h % 2, w % 2
+    if ph or pw:
+        x = F.pad(x, (0, 0, 0, pw, 0, ph))
+        h, w = h + ph, w + pw
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // 2, w // 2, 4 * c)
 
 
 def _avg_pool_same(x):
@@ -268,13 +291,16 @@ class InceptionV3(nn.Module):
     `normalize_pileup` does, and returns (B, 3) float32 probabilities;
     `logits` returns the head's float32 logits. `dtype` is the compute
     dtype of the convs; `bn_momentum` is every batch norm's running-
-    average momentum (keras InceptionV3's 0.9997 by default)."""
+    average momentum (keras InceptionV3's 0.9997 by default). With
+    `stem_s2d` the stem takes the 2x2 space-to-depth input through a 2x2
+    stride-1 conv (`convert_stem_to_s2d` makes its weights)."""
 
     def __init__(self, num_channels: int, num_classes: int = NUM_CLASSES,
                  fold_bn: bool = False,
                  dropout_rate: float = DEFAULT_BACKBONE_DROPOUT_RATE,
                  bn_momentum: float = 0.9997,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 stem_s2d: bool = False):
         super().__init__()
         self.num_channels = num_channels
         self.num_classes = num_classes
@@ -282,8 +308,14 @@ class InceptionV3(nn.Module):
         self.dropout_rate = dropout_rate
         self.bn_momentum = bn_momentum
         self.dtype = dtype
+        self.stem_s2d = stem_s2d
         f = fold_bn
-        self.stem1 = ConvBN(num_channels, 32, (3, 3), 2, "VALID", fold_bn=f)
+        if stem_s2d:
+            self.stem1 = ConvBN(4 * num_channels, 32, (2, 2), 1, "VALID",
+                                fold_bn=f)
+        else:
+            self.stem1 = ConvBN(num_channels, 32, (3, 3), 2, "VALID",
+                                fold_bn=f)
         self.stem2 = ConvBN(32, 32, (3, 3), 1, "VALID", fold_bn=f)
         self.stem3 = ConvBN(32, 64, (3, 3), fold_bn=f)
         self.stem4 = ConvBN(64, 80, (1, 1), 1, "VALID", fold_bn=f)
@@ -308,6 +340,8 @@ class InceptionV3(nn.Module):
             blocks.append(block)
             c = block.out_channels
         self._blocks = blocks
+        self._block_names = [name for name, _ in self.named_children()
+                             if name.startswith("mixed")]
         self.classification = nn.Linear(c, num_classes)
         for module in self.modules():
             if isinstance(module, BatchNorm):
@@ -317,14 +351,25 @@ class InceptionV3(nn.Module):
     def compute_dtype(self) -> torch.dtype:
         return self.dtype
 
-    def backbone(self, x):
-        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)
+    def backbone(self, x, stop_after: Optional[str] = None):
+        """The pooled (B, 2048) float32 features. `stop_after` truncates
+        the graph after a named block group ('stem' / 'mixedN') and
+        returns that activation, (B, H', W', C') in the input's NHWC
+        layout: the per-segment timing hook of the JAX package."""
+        x = x.to(self.compute_dtype)
+        if self.stem_s2d:
+            x = _space_to_depth_2x2(x)
+        x = x.permute(0, 3, 1, 2)
         x = self.stem3(self.stem2(self.stem1(x)))
         x = _max_pool_v(x)
         x = self.stem5(self.stem4(x))
         x = _max_pool_v(x)
-        for block in self._blocks:
+        if stop_after == "stem":
+            return x.permute(0, 2, 3, 1)
+        for name, block in zip(self._block_names, self._blocks):
             x = block(x)
+            if stop_after == name:
+                return x.permute(0, 2, 3, 1)
         # pooling='avg' (keras_modeling.py:252-257). The JAX model takes
         # the mean in the compute dtype, so the pooled features round to
         # it before the float32 head.
@@ -446,7 +491,8 @@ def fold_batch_norm(model: InceptionV3) -> InceptionV3:
     state["classification.bias"] = model.classification.bias.detach()
     folded = InceptionV3(model.num_channels, model.num_classes,
                          fold_bn=True, dropout_rate=model.dropout_rate,
-                         bn_momentum=model.bn_momentum)
+                         bn_momentum=model.bn_momentum,
+                         stem_s2d=model.stem_s2d)
     folded.load_state_dict({k: v.float().cpu() for k, v in state.items()})
     return prepare_for_inference(folded, device, conv_dtype)
 
@@ -459,20 +505,96 @@ def pad_stem_input_channels(model: InceptionV3,
     c = model.num_channels
     if to_channels < c:
         raise ValueError(f"cannot shrink {c} -> {to_channels}")
+    if model.stem_s2d:
+        raise ValueError("pad the stem before convert_stem_to_s2d")
+    weight = torch.zeros_like(model.stem1.conv.weight[:, :1]).repeat(
+        1, to_channels, 1, 1)
+    weight[:, :c] = model.stem1.conv.weight.detach()
+    return _with_stem_weight(model, weight, num_channels=to_channels)
+
+
+def _with_stem_weight(model: InceptionV3, weight: torch.Tensor,
+                      num_channels: int,
+                      stem_s2d: Optional[bool] = None) -> InceptionV3:
+    """A copy of `model` whose stem conv has `weight` (O, I, kh, kw), the
+    stem's stride 1 for a 2x2 kernel, and the same bias."""
     out = copy.deepcopy(model)
     old = model.stem1.conv
-    new = nn.Conv2d(to_channels, old.out_channels, old.kernel_size,
-                    old.stride, old.padding, bias=old.bias is not None)
+    kernel = tuple(weight.shape[2:])
+    new = nn.Conv2d(weight.shape[1], old.out_channels, kernel,
+                    1 if kernel == (2, 2) else old.stride, old.padding,
+                    bias=old.bias is not None)
     new = new.to(device=old.weight.device, dtype=old.weight.dtype,
                  memory_format=torch.channels_last)
     with torch.no_grad():
-        new.weight.zero_()
-        new.weight[:, :c] = old.weight
+        new.weight.copy_(weight)
         if old.bias is not None:
             new.bias.copy_(old.bias)
     out.stem1.conv = new
-    out.num_channels = to_channels
+    out.num_channels = num_channels
+    if stem_s2d is not None:
+        out.stem_s2d = stem_s2d
     return out
+
+
+def convert_stem_to_s2d(model: InceptionV3) -> InceptionV3:
+    """The model with its stem rewritten for the space-to-depth graph.
+
+    Exact: a VALID 3x3 stride-2 conv equals a VALID 4x4 stride-2 conv
+    with a zero-padded kernel, which equals a VALID 2x2 stride-1 conv
+    over the 2x2 space-to-depth input: K2[o, (p*2+q)*C + c, a, b] =
+    K[o, c, 2a+p, 2b+q] (zero where the pad lands), the JAX package's
+    packing in torch's (O, I, kh, kw) layout. Works on folded and
+    unfolded models (batch norm and the bias attach to output channels,
+    which are untouched). Returns a new model."""
+    kernel = model.stem1.conv.weight.detach()
+    o, c, kh, kw = kernel.shape
+    if model.stem_s2d or (kh, kw) != (3, 3):
+        raise ValueError(
+            f"stem1 kernel is {tuple(kernel.shape)}, expected 3x3")
+    k2 = torch.zeros((o, 4 * c, 2, 2), dtype=kernel.dtype,
+                     device=kernel.device)
+    for a in (0, 1):
+        for b in (0, 1):
+            for p in (0, 1):
+                for q in (0, 1):
+                    di, dj = 2 * a + p, 2 * b + q
+                    if di < 3 and dj < 3:
+                        k2[:, (p * 2 + q) * c:(p * 2 + q + 1) * c, a, b] = \
+                            kernel[:, :, di, dj]
+    return _with_stem_weight(model, k2, num_channels=c, stem_s2d=True)
+
+
+def adapt_input_channels(model: InceptionV3, new_num_channels: int,
+                         generator: Optional[torch.Generator] = None
+                         ) -> InceptionV3:
+    """The stem conv re-shaped for another channel count.
+
+    Port of `load_weights_to_model_with_different_channels`
+    (keras_modeling.py:113-169): the shared leading channels are
+    copied, extra channels are freshly drawn (normal, std
+    sqrt(2 / fan_in), fan_in = kh * kw * new_num_channels). The JAX
+    package draws them with jax.random.normal; here they come from
+    `generator` (seed 0 when none is given), so the new slice matches
+    JAX's in distribution only. Returns a new model (the model itself
+    when the count is unchanged)."""
+    if model.stem_s2d:
+        raise ValueError("adapt the stem before convert_stem_to_s2d")
+    kernel = model.stem1.conv.weight.detach()
+    c_out, c_in, kh, kw = kernel.shape
+    if c_in == new_num_channels:
+        return model
+    if new_num_channels < c_in:
+        weight = kernel[:, :new_num_channels]
+    else:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        fan_in = kh * kw * new_num_channels
+        extra = torch.randn((kh, kw, new_num_channels - c_in, c_out),
+                            generator=generator, dtype=torch.float32)
+        extra = (extra * (2.0 / fan_in) ** 0.5).permute(3, 2, 0, 1)
+        weight = torch.cat([kernel, extra.to(kernel)], dim=1)
+    return _with_stem_weight(model, weight, num_channels=new_num_channels)
 
 
 # ---------------------------------------------------------------------------

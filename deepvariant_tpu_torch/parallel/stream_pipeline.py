@@ -16,9 +16,10 @@ multiprocessing queue into the parent process. Two encode modes:
     the CNN (calling.call_variants.Predictor).
 
 CallVariantsOutputs accumulate in memory; no file lies between the
-stages. gVCF records stream through the same queue (replacing their
-TFRecord), so `output_gvcf` is the drop-in equivalent of the staged
-gVCF.
+stages. gVCF records and the small model's CVOs stream through the same
+queue (replacing their TFRecords), so `output_gvcf` and the options'
+`call_small_model_examples` are drop-in equivalents of the staged gVCF
+and small-model CVO file.
 
 The CVOs equal the staged path's: workers iterate exactly the regions
 their task_id owns (the round-robin rule of make_examples_core.py:881),
@@ -27,8 +28,8 @@ probabilities do not depend on batch boundaries.
 
 `run_streaming_pipeline` goes on to the VCF and the gVCF:
 `postprocess_variants` (stage 3, on the host) on the CVOs and the gVCF
-records in memory. Small-model CVOs through the queues are not ported:
-the small model's options raise in the workers.
+records in memory; the small model's CVOs join the stream's CVOs before
+it, as the staged path joins the two CVO files.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ _SENTINEL_KIND = "done"
 _BATCH_KIND = "examples"
 _PLAN_KIND = "plans"
 _GVCF_KIND = "gvcfs"
+_SM_CVO_KIND = "small_model_cvos"
 _FLUSH_EVERY = 64
 _GVCF_FLUSH_EVERY = 512
 
@@ -53,8 +55,10 @@ def _stream_worker(options, task_id: int, num_shards: int,
                    out_queue: "mp.Queue", device_encode: bool = False,
                    want_gvcf: bool = False) -> None:
     """One make_examples shard, payloads to the queue (spawn target):
-    plans with `device_encode`, serialized tf.Examples without, and with
-    `want_gvcf` encoded gVCF records. Runs on the host only.
+    plans with `device_encode`, serialized tf.Examples without, with
+    `want_gvcf` encoded gVCF records, and with the options'
+    `call_small_model_examples` the small model's encoded CVOs. Runs on
+    the host only.
 
     `options` is a pickled MakeExamplesOptions (or a kwargs dict):
     passing the object keeps the streamed path's configuration
@@ -79,7 +83,7 @@ def _stream_worker(options, task_id: int, num_shards: int,
         options.small_model_cvo_filename = ""
 
         bufs: Dict[str, list] = {_BATCH_KIND: [], _PLAN_KIND: [],
-                                 _GVCF_KIND: []}
+                                 _GVCF_KIND: [], _SM_CVO_KIND: []}
 
         def flush(kind: str):
             if bufs[kind]:
@@ -110,6 +114,10 @@ def _stream_worker(options, task_id: int, num_shards: int,
             # Variants cross the spawn boundary as their encoded bytes.
             gvcf_sink = make_sink(_GVCF_KIND, _GVCF_FLUSH_EVERY)
             sinks["gvcf_sink"] = lambda v: gvcf_sink(v.encode())
+        if options.call_small_model_examples:
+            sm_cvo_sink = make_sink(_SM_CVO_KIND)
+            sinks["small_model_cvo_sink"] = \
+                lambda cvo: sm_cvo_sink(cvo.encode())
         counts = make_examples_runner(options, **sinks)
         for kind in bufs:
             flush(kind)
@@ -173,7 +181,10 @@ def stream_examples_to_cvos(
     weights live in the model (models.checkpoint reads flax files).
 
     The third element of the result is the gVCF records (Variants, in
-    the order the workers sent them) with `want_gvcf`, else None.
+    the order the workers sent them) with `want_gvcf`, else None. With
+    the options' `call_small_model_examples` the small model's CVOs
+    follow the CNN's in the first element, as in the JAX package
+    (stage 3 sorts them by locus either way).
     """
     from deepvariant_tpu_torch.calling.call_variants import (
         ExampleRecord,
@@ -219,6 +230,7 @@ def stream_examples_to_cvos(
     failures: List[str] = []
     first_result_t: List[float] = []
     gvcf_records: Optional[List] = [] if want_gvcf else None
+    small_model_cvos: List = []
 
     def payloads() -> Iterator:
         remaining = num_workers
@@ -236,6 +248,10 @@ def stream_examples_to_cvos(
                 continue
             if msg[0] == _GVCF_KIND:
                 gvcf_records.extend(Variant.decode(buf) for buf in msg[1])
+                continue
+            if msg[0] == _SM_CVO_KIND:
+                small_model_cvos.extend(
+                    CallVariantsOutput.decode(buf) for buf in msg[1])
                 continue
             if msg[0] == _PLAN_KIND:
                 yield from msg[1]
@@ -321,6 +337,7 @@ def stream_examples_to_cvos(
         examples_per_sec=len(cvos) / dt,
         stage1_counts=stage1_counts,
         device_encode=device_encode,
+        num_small_model_cvos=len(small_model_cvos),
         num_gvcf_records=len(gvcf_records) if want_gvcf else 0,
         steady_state_examples_per_sec=steady,
     )
@@ -329,6 +346,7 @@ def stream_examples_to_cvos(
             f"stream lost examples: workers produced "
             f"{stats.num_examples}, classified {stats.num_cvos}"
         )
+    cvos.extend(small_model_cvos)
     return cvos, stats, gvcf_records
 
 

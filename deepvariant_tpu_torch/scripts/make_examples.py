@@ -14,9 +14,14 @@ MM/ML, the aux-driven channels of `--channel_list`), and so does
 positions file is `core.candidate_sweep_runner`'s). `--reads` takes a
 BAM or a CRAM, and `--mode training` labels the examples from
 `--truth_variants` and `--confident_regions` with any
-`--labeler_algorithm`. Options whose code the port does not have yet
-(the small model, `--denovo_regions`) raise NotImplementedError through
-`refuse_unported_options`, naming their ROADMAP.md item. `--stream_examples`/`--shm_*` are refused as in the
+`--labeler_algorithm`. The small model's flags run its gate
+(`--call_small_model_examples`, its CVOs to `--small_model_cvo_records`)
+and write its training rows (`--write_small_model_examples`). Options
+whose code the port does not have yet (`--denovo_regions`), the
+small-model flags the JAX package never reads at other values than
+their defaults, and `--write_small_model_examples` with `--phase_reads`
+raise NotImplementedError through `refuse_unported_options`, naming
+their ROADMAP.md entry. `--stream_examples`/`--shm_*` are refused as in the
 JAX package (the fused stream replaces them), and `--hts_block_size` is
 accepted and does nothing (the IO layer reads whole BGZF blocks).
 

@@ -35,6 +35,10 @@ planted variants: a population VCF with an AF per alt (for the
 allele_frequency channel), a VCF of proposed variants (for the
 vcf_candidate_importer) and a VCF of variants to exclude, each bgzipped
 and tabix-indexed by the port's own writers, each only when asked for.
+
+`keras_inception_stand_in` is a seeded numpy stand-in of a keras
+InceptionV3, layers and weights in keras's order and layouts, for the
+keras import where TensorFlow is not installed.
 """
 
 from __future__ import annotations
@@ -940,3 +944,76 @@ def write_truth_inputs(sample: dict, directory: str,
     with open(bed_path, "w") as f:
         f.writelines(f"{n}\t{a}\t{b}\n" for n, a, b in bed)
     return dict(truth=path, confident=bed_path)
+
+
+# -- keras model stand-in ----------------------------------------------------
+
+class _KerasLayer:
+    """A layer with keras's interface as `convert_keras_inception` reads
+    it: a `name` and `get_weights()`; the class name is keras's."""
+
+    def __init__(self, name: str, weights: List[np.ndarray]):
+        self.name = name
+        self._weights = weights
+
+    def get_weights(self) -> List[np.ndarray]:
+        return list(self._weights)
+
+
+def keras_inception_stand_in(seed: int, num_channels: int = 3,
+                             head: bool = True):
+    """A numpy stand-in of a keras InceptionV3 (backbone, and the dense
+    head unless `head` is False), with seeded weights in keras's
+    layouts: Conv2D [kernel (kh, kw, cin, cout)], BatchNormalization
+    [beta, moving_mean, moving_variance] (scale=False), Dense [kernel,
+    bias]. The layers are auto-named in creation order (conv2d,
+    conv2d_1, ...) and listed as keras lists them, not in that order:
+    the backbone is a nested Functional model, and its layers come
+    shuffled. Returns the model object."""
+    from deepvariant_tpu_torch.models.inception_v3 import (
+        InceptionV3,
+        to_flax_variables,
+    )
+    from deepvariant_tpu_torch.models.keras_import import FLAX_CONV_PATHS
+
+    rng = np.random.RandomState(seed)
+    params = to_flax_variables(InceptionV3(num_channels))["params"]
+    classes = {}
+
+    def layer(cls: str, name: str, weights):
+        kind = classes.setdefault(cls, type(cls, (_KerasLayer,), {}))
+        return kind(name, weights)
+
+    def model(layers):
+        kind = classes.setdefault("Functional", type("Functional", (), {}))
+        out = kind()
+        out.layers = layers
+        out.name = "model"
+        return out
+
+    backbone = [layer("InputLayer", "input_1", [])]
+    for i, path in enumerate(FLAX_CONV_PATHS):
+        node = params
+        for key in path:
+            node = node[key]
+        kernel_shape = node["conv"]["kernel"].shape
+        fan_in = int(np.prod(kernel_shape[:-1]))
+        suffix = f"_{i}" if i else ""
+        cout = kernel_shape[-1]
+        backbone.append(layer("Conv2D", f"conv2d{suffix}", [
+            (rng.standard_normal(kernel_shape)
+             * np.sqrt(2.0 / fan_in)).astype(np.float32)]))
+        backbone.append(layer("BatchNormalization",
+                              f"batch_normalization{suffix}", [
+            (rng.standard_normal(cout) * 0.1).astype(np.float32),
+            (rng.standard_normal(cout) * 0.1).astype(np.float32),
+            rng.uniform(0.5, 1.5, cout).astype(np.float32)]))
+        backbone.append(layer("Activation", f"activation{suffix}", []))
+    order = rng.permutation(len(backbone))
+    layers = [model([backbone[i] for i in order])]
+    if head:
+        layers.append(layer("Dropout", "dropout", []))
+        layers.append(layer("Dense", "dense", [
+            (rng.standard_normal((2048, 3)) * 0.03).astype(np.float32),
+            (rng.standard_normal(3) * 0.1).astype(np.float32)]))
+    return model(layers)

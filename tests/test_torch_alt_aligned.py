@@ -456,15 +456,20 @@ def test_host_composed_alt_modes_still_raise(short_paths, mode):
 def test_long_read_presets_need_only_direct_phasing(long_paths, preset):
     """A long-read preset needed direct phasing and nothing else: with it
     ported, the preset is accepted with its defaults (phase_reads on),
-    and with methylation-aware phasing; the small model still raises,
-    naming its item."""
+    and with methylation-aware phasing; the small model's gate is
+    ported too and takes the preset's phased reads (its rows carry the
+    haplotype copies), while its training rows with phase_reads, which
+    crash the JAX package, raise, naming their Queue 3 entry."""
     options = preset_options(PORT, long_paths, preset)
     assert options.phase_reads
     tcore.RegionProcessor(options)
     options.enable_methylation_aware_phasing = True
     tcore.RegionProcessor(options)
     options.call_small_model_examples = True
+    processor = tcore.RegionProcessor(options)
+    assert processor.small_model_factory.expand_by_haplotype
+    options.write_small_model_examples = True
     with pytest.raises(NotImplementedError) as raised:
         tcore.RegionProcessor(options)
-    assert "small model" in str(raised.value)
+    assert "phase_reads" in str(raised.value)
     assert "alt_aligned" not in str(raised.value)

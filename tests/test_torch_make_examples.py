@@ -226,24 +226,71 @@ def test_model_presets_match_jax(model_type):
 
 UNPORTED = {
     "small-model": dict(call_small_model_examples=True),
-    "small-model-train": dict(write_small_model_examples=True),
-    "small-model-path": dict(trained_small_model_path="m"),
-    "small-model-cvos": dict(small_model_cvo_filename="c.tfrecord"),
+    "small-model-train": dict(write_small_model_examples=True,
+                              small_model_examples_filename="e.tfrecord"),
+    "small-model-path": dict(call_small_model_examples=True,
+                             trained_small_model_path="m"),
+    "small-model-cvos": dict(call_small_model_examples=True,
+                             small_model_cvo_filename="c.tfrecord"),
     "small-model-examples": dict(small_model_examples_filename="e.tfrecord"),
     "denovo": dict(denovo_regions=["chr1:1-10"]),
 }
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
-def test_unported_options_raise(paths, name):
-    options = wgs_options(PORT, paths)
-    for key, value in UNPORTED[name].items():
-        assert hasattr(options, key)
-        setattr(options, key, value)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1"):
-        tcore.RegionProcessor(options)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1"):
-        tcore.make_examples_runner(options, plan_sink=lambda plan: None)
+def test_unported_options_raise(paths, tmp_path, name):
+    """The small model is ported: each of its options runs, and the port's
+    counts, plans and small-model files equal the JAX runner's (a file
+    name is placed in the test's directory, one per package; "m" is a
+    bundle of seeded weights). `--denovo_regions`, which neither package
+    reads, still raises, naming its ROADMAP item."""
+    from deepvariant_tpu_torch.io import flax_msgpack
+    from deepvariant_tpu_torch.small_model.model import create_small_model
+
+    if name == "denovo":
+        options = wgs_options(PORT, paths, **UNPORTED[name])
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md Queue 1"):
+            tcore.RegionProcessor(options)
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md Queue 1"):
+            tcore.make_examples_runner(options, plan_sink=lambda plan: None)
+        return
+    bundle = tmp_path / "m"
+    bundle.mkdir()
+    _, variables = create_small_model(19, seed=3)
+    rng = np.random.RandomState(3)
+    (bundle / "small_model.msgpack").write_bytes(flax_msgpack.pack({
+        "params": variables,
+        "mean": rng.uniform(0, 3, 19).astype(np.float32),
+        "scale": rng.uniform(0.5, 1, 19).astype(np.float32)}))
+    results = []
+    for package in (JAX, PORT):
+        overrides = {}
+        for key, value in UNPORTED[name].items():
+            if value == "m":
+                value = str(bundle)
+            elif isinstance(value, str):
+                value = str(tmp_path / f"{package}.{value}")
+            overrides[key] = value
+        counts, plans, _, candidates = run(
+            package, paths, tmp_path, name, regions=["chr1:1-3,000"],
+            **overrides)
+        files = [open(p, "rb").read() for p in overrides.values()
+                 if isinstance(p, str) and p.endswith(".tfrecord")]
+        results.append((counts, plans, files,
+                        open(candidates, "rb").read()))
+    (want_counts, want_plans, want_files, want_cands), \
+        (counts, plans, files, cands) = results
+    assert counts == want_counts and files == want_files
+    assert cands == want_cands
+    assert_planned_equal(plans, want_plans)
+    assert counts["candidates"] > 10
+    if UNPORTED[name].get("call_small_model_examples"):
+        # The gate kept some candidates from the CNN.
+        ungated = run(PORT, paths, tmp_path, "ungated",
+                      regions=["chr1:1-3,000"])[0]
+        assert counts["examples"] < ungated["examples"]
 
 
 @pytest.mark.parametrize("mode", ["base_channels", "rows", "single_row"])
@@ -290,10 +337,17 @@ def test_long_read_presets_raise_until_phasing_is_ported(paths, preset):
 
 def test_sinks_without_ported_code_raise(paths, tmp_path):
     sink = lambda item: None  # noqa: E731
-    # The small model's sink still raises.
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md"):
-        tcore.make_examples_runner(wgs_options(PORT, paths), plan_sink=sink,
-                                   small_model_cvo_sink=sink)
+    # The small model's sink is ported: it receives the CVOs the JAX
+    # runner's sink receives.
+    sunk = {}
+    for package, core in ((JAX, jcore), (PORT, tcore)):
+        cvos = sunk[package] = []
+        core.make_examples_runner(
+            wgs_options(package, paths, regions=["chr1:1-2,000"],
+                        call_small_model_examples=True),
+            plan_sink=sink, small_model_cvo_sink=cvos.append)
+    assert [c.encode() for c in sunk[PORT]] == \
+        [c.encode() for c in sunk[JAX]] and sunk[PORT]
     with pytest.raises(ValueError, match="not both"):
         tcore.make_examples_runner(wgs_options(PORT, paths),
                                    example_sink=sink, plan_sink=sink)

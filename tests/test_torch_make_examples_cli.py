@@ -218,7 +218,7 @@ def test_refusals_match_jax(name, short_paths, capsys):
         assert len(code) > 10 and not err
 
 
-@pytest.mark.parametrize("flag", [["--call_small_model_examples"]])
+@pytest.mark.parametrize("flag", [["--denovo_regions", "chr1:1-10"]])
 def test_unported_options_raise_naming_roadmap(flag, short_paths, tmp_path):
     argv = ["--mode", "calling", "--ref", short_paths["ref"],
             "--reads", short_paths["reads"],

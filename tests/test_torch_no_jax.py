@@ -34,7 +34,7 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "make_examples.pileup", "make_examples.pileup_device",
     "make_examples.presets", "make_examples.shuffle",
     "make_examples.variant_caller", "make_examples.vcf_candidate_importer",
-    "models.checkpoint", "models.inception_v3",
+    "models.checkpoint", "models.inception_v3", "models.keras_import",
     "ops._build", "ops.pileup_paint",
     "parallel.stream_pipeline",
     "phasing.direct_phasing", "phasing.merge_phased_reads",
@@ -43,9 +43,12 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "postprocess.multiallelic_model", "postprocess.pipeline",
     "realign.config", "realign.debruijn_graph", "realign.fast_pass_aligner",
     "realign.realigner", "realign.ssw", "realign.window_selector",
-    "scripts.call_variants", "scripts.make_examples",
+    "scripts.call_variants", "scripts.export_model",
+    "scripts.import_keras_model", "scripts.make_examples",
     "scripts.postprocess_variants", "scripts.run_deepvariant",
-    "scripts.train",
+    "scripts.run_oracle_inference", "scripts.train",
+    "scripts.train_small_model",
+    "small_model.features", "small_model.model", "small_model.train",
     "testing.cram_writer", "testing.synthetic",
     "training.config", "training.data", "training.metrics",
     "training.train", "training.train_resident",
@@ -214,8 +217,9 @@ def test_cram_training_run_without_jax(tmp_path):
     assert "clean" in out.stdout
 
 
-@pytest.mark.parametrize("script", ["make_examples", "run_deepvariant",
-                                    "train"])
+@pytest.mark.parametrize("script", [
+    "make_examples", "run_deepvariant", "train", "train_small_model",
+    "run_oracle_inference", "export_model", "import_keras_model"])
 def test_clis_answer_help_without_jax(script, tmp_path):
     """`python -m deepvariant_tpu_torch.scripts.<script> --help` with the
     forbidden packages made unimportable (stand-ins that raise on import

@@ -331,7 +331,7 @@ def test_a_failing_shard_fails_the_run(inputs, tmp_path):
         rd.main(["--ref", inputs["ref"], "--reads", inputs["reads"],
                  "--output_vcf", str(tmp_path / "x.vcf"), "--device", "cpu",
                  "--allow_uninitialized_model", "--num_shards", "2",
-                 "--call_small_model_examples"])
+                 "--make_examples_extra_args", "denovo_regions=chr1:1-10"])
 
 
 def test_parser_is_the_jax_one_plus_device():

@@ -595,3 +595,43 @@ def training_inputs(sample, directory, seed=3):
     paths["cram"] = cram_writer.write_cram(
         sample, os.path.join(str(directory), "reads.cram"))
     return paths
+
+
+# -- the small model ----------------------------------------------------------
+
+# Column of `is_multiple_alt_alleles` in a feature row (BASE_FEATURES,
+# then VARIANT_FEATURES).
+IS_MULTIPLE_ALT_ALLELES = 12 + 6
+
+
+def gate_variables(num_features):
+    """Small-model variables in flax's layout (the three Dense layers an
+    untrained gate has, narrowed to one unit) whose call is confident
+    (class 0, phred 40.4) on every row with one alt allele and uniform
+    on every pair of alts: a multiallelic candidate is then accepted for
+    its single alleles and goes to the CNN with its pair only."""
+    kernel0 = np.zeros((num_features, 1), np.float32)
+    kernel0[IS_MULTIPLE_ALT_ALLELES, 0] = 1
+    return {"params": {
+        "Dense_0": {"kernel": kernel0, "bias": np.zeros(1, np.float32)},
+        "Dense_1": {"kernel": np.ones((1, 1), np.float32),
+                    "bias": np.zeros(1, np.float32)},
+        "Dense_2": {"kernel": np.array([[-10, 0, 0]], np.float32),
+                    "bias": np.array([10, 0, 0], np.float32)},
+    }}
+
+
+def small_model_rows(path, n=64, num_features=19, seed=0):
+    """`n` seeded small-model training rows of `num_features` counts,
+    written with the JAX package's codec and writer; returns `path`."""
+    from deepvariant_tpu.io.tfrecord import TFRecordWriter
+    from deepvariant_tpu.small_model.train import encode_training_example
+
+    rng = np.random.RandomState(seed)
+    with TFRecordWriter(path) as w:
+        for _ in range(n):
+            label = int(rng.randint(0, 3))
+            feats = rng.randint(0, 60, num_features) + 10 * label
+            w.write(encode_training_example(feats.tolist(), label,
+                                            ids=["chr1", "1"]))
+    return path
