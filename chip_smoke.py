@@ -234,7 +234,29 @@ Phases:
      without the rewrites, timed. (D) run_oracle_inference (2 shards):
      every confident truth record at a biallelic oracle record is called
      with its truth genotype.
- 16. One JSON line per the kernels, the card's name and power limit, and
+ 16. Multi-sample make_examples and the one-step product scripts, on
+     a seeded family, tumour/normal pair and read set with a 16-haplotype
+     panel (`synthetic.synthetic_family`, `synthetic_tumor_normal`,
+     `synthetic_pangenome`; 10 kb each, a variant every 400-500 bases, a
+     seeded checkpoint written to disk): `run_deeptrio` (child and both
+     parents, 40/60/40 rows: 140x221x7), `run_deepsomatic` on the pair
+     with a panel of normals and on the tumour alone (200x221x7 and
+     100x221x7) and `run_pangenome_aware_deepvariant` with the panel as
+     a .gbz (200x221x7), each with `--device cuda`, printing its
+     examples and stage seconds. Every trio example, painted on the
+     host, must equal the CUDA plan form's planes of the same candidate
+     (each sample's plan from its own ExamplesBuilder and support, one
+     launch per sample per batch, stacked) bit for bit; every VCF must
+     equal stage 3 on its CVOs in memory and answer a .tbi query; each
+     script's examples go through call_variants once more in float32
+     (TF32 off) on the card and on the CPU, whose CVOs may differ by at
+     most F32_CARD_CPU_ATOL, and the VCF records that the card's
+     bfloat16 moves against its float32 are counted. The
+     multisample_make_examples CLI's trio (100/100/100 rows) gives
+     300x221x7 examples; the bfloat16 InceptionV3(7) is timed at batch
+     512 at 140, 200 and 300 rows, back to back and call by call, with
+     the peak of allocated memory.
+ 17. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
@@ -246,8 +268,11 @@ host-encode one must launch none), around route A's stream in phase 12
 and around the whole of route B (which must launch none), in phase 13
 around route A's `--stream` run and around the painting of route B's
 labeled plans, around the whole of phase 14 (training paints
-nothing: it must count 0), and in phase 15 around route B's `--stream`
-run; the
+nothing: it must count 0), in phase 15 around route B's `--stream`
+run, and in phase 16 around the painting of the three DeepTrio targets'
+planes (the multi-sample path paints on the host, as in the JAX
+package: this is the smoke's check of the plan form on trio planes, not
+a path of the package); the
 comparisons of phase 2 and of the checks after the paths are not
 counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
@@ -413,6 +438,15 @@ SMALL_MODEL_TIMING_STEPS = (20, 3)   # timed steps, warm-up steps
 FP32_PEAK_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
 S2D_ATOL = 1e-4                # folded + padded + s2d vs plain, float32
 PAINT_OPS_PER_PIXEL = 10         # min, mul, div (quality) + 7 mask muls
+
+# Phase 16: the seeded family, tumour/normal pair and pangenome panel,
+# 10 kb each with a variant every 400-500 bases (the one-step scripts run
+# the realigner, whose windows then assemble), and the WGS channels they
+# set.
+MULTISAMPLE_CONTIGS = (("chr1", 10_000),)
+MULTISAMPLE_SPACING = 400
+MULTISAMPLE_CHANNELS = 7
+F32_CARD_CPU_ATOL = 1e-4       # float32 CVOs, the card (TF32 off) vs the CPU
 
 
 def nvidia_smi() -> str:
@@ -1251,8 +1285,9 @@ def vcf_records(path: str) -> list:
 
 
 def check_vcf(vcf: str, cvos, ref: str, sample_name: str, tag: str,
-              card: str) -> dict:
-    """The VCF against stage 3 on the same CVOs in memory: the same
+              card: str, **options) -> dict:
+    """The VCF against stage 3 on the same CVOs in memory (with
+    `options` of postprocess_variants, as the route gave them): the same
     bytes, one record per CVO group (none is filtered out at the
     defaults), and a working `.tbi` (built here where the route did not
     build one). Returns the in-memory postprocess's numbers."""
@@ -1269,7 +1304,7 @@ def check_vcf(vcf: str, cvos, ref: str, sample_name: str, tag: str,
     copies = [CallVariantsOutput.decode(c.encode()) for c in cvos]
     start = time.time()
     stats = postprocess_variants(copies, again, contigs,
-                                 sample_name=sample_name)
+                                 sample_name=sample_name, **options)
     seconds = time.time() - start
     with open(vcf, "rb") as a, open(again, "rb") as b:
         if a.read() != b.read():
@@ -3999,6 +4034,442 @@ def oracle_agreement(oracle_vcf: str, truth: dict, tag: str) -> tuple:
     return matched, len(want), multi
 
 
+# -- phase 16: multi-sample make_examples and the one-step scripts -----------
+
+def multisample_inputs(directory: str, tag: str) -> dict:
+    """The seeded family, tumour/normal pair and pangenome panel over
+    MULTISAMPLE_CONTIGS, written with the port's writers: one FASTA per
+    set, a BAM per sample, the panel as a GBZ, and a panel of normals
+    (the normal's planted variants in the cohort forms of
+    `synthetic.write_vcf_inputs`)."""
+    from deepvariant_tpu_torch.core import types
+    from deepvariant_tpu_torch.io import bam, bam_writer, gbz
+    from deepvariant_tpu_torch.testing import synthetic
+
+    start = time.time()
+    writers = (types, bam, bam_writer)
+    paths = {}
+    family = synthetic.synthetic_family(
+        SEED + 16, MULTISAMPLE_CONTIGS, variant_spacing=MULTISAMPLE_SPACING)
+    pair = synthetic.synthetic_tumor_normal(
+        SEED + 17, MULTISAMPLE_CONTIGS, variant_spacing=MULTISAMPLE_SPACING)
+    pangenome = synthetic.synthetic_pangenome(
+        SEED + 18, MULTISAMPLE_CONTIGS, variant_spacing=MULTISAMPLE_SPACING)
+    reads = 0
+    for name, samples in (("family", family), ("pair", pair),
+                          ("pangenome", pangenome)):
+        d = os.path.join(directory, name)
+        os.makedirs(d)
+        first = next(s for s in samples.values() if "reads" in s)
+        paths[name] = {"ref": synthetic.write_fasta(
+            first, os.path.join(d, "ref.fa"))}
+        for role, sample in samples.items():
+            if isinstance(sample, dict) and "reads" in sample:
+                paths[name][role] = synthetic.write_bam(
+                    sample, os.path.join(d, f"{role}.bam"), *writers)
+                reads += len(sample["reads"]["name"])
+    paths["pangenome"]["panel"] = synthetic.write_panel_gbz(
+        pangenome["panel"], os.path.join(directory, "pangenome", "panel.gbz"),
+        gbz)
+    paths["pair"]["pon"] = synthetic.write_vcf_inputs(
+        pair["normal"], os.path.join(directory, "pair"), seed=SEED + 19,
+        population=True)["population"]
+    print(f"[{tag}] wrote a family (3 samples), a tumour/normal pair "
+          f"({len(pair['somatic']['chr1'])} somatic variants at allele "
+          f"fractions {min(v['vaf'] for v in pair['somatic']['chr1'])}-"
+          f"{max(v['vaf'] for v in pair['somatic']['chr1'])}) and a read "
+          f"set with a {len(pangenome['panel']['haplotypes'])}-haplotype "
+          f"GBZ panel over {MULTISAMPLE_CONTIGS}: {reads} reads in "
+          f"{time.time() - start:.1f} s")
+    return paths
+
+
+def collect_trio_plans(stacks: list, builders: list):
+    """Wrap MultiSampleRegionProcessor._stacked_examples_for_candidate so
+    that beside each stacked example it keeps the plan of every sample's
+    plane (that sample's ExamplesBuilder and support, as the host painter
+    gets them): `stacks` gets one list per runner call, of tuples of
+    plans, and `builders` that call's ExamplesBuilders. Returns a
+    function that puts the plain method back."""
+    from deepvariant_tpu_torch.make_examples import multisample as ms
+    from deepvariant_tpu_torch.make_examples.variant_caller import (
+        DeepVariantCall,
+    )
+
+    cls = ms.MultiSampleRegionProcessor
+    plain = cls._stacked_examples_for_candidate
+
+    def with_plans(self, dv_call, batches, counters=None, label=None):
+        out = plain(self, dv_call, batches, counters, label=label)
+        if not stacks or builders[-1] is not self.builders:
+            stacks.append([])
+            builders.append(self.builders)
+        planes = []
+        for i, (builder, batch) in enumerate(zip(self.builders, batches)):
+            call = dv_call
+            if i != self.main_sample_index:
+                support, refs = self._main.caller.support_from_counter(
+                    counters[i], dv_call) if counters is not None \
+                    else ({}, [])
+                call = DeepVariantCall(
+                    variant=dv_call.variant, allele_support=support,
+                    ref_support=refs, allele_keys=dv_call.allele_keys)
+            planes.append(list(builder.build_plans_for_candidate(call,
+                                                                 batch)))
+        if any(len(p) != len(out) for p in planes):
+            raise AssertionError("a plane's plans and the stacked examples "
+                                 "of a candidate differ in number")
+        stacks[-1].extend(zip(*planes))
+        return out
+
+    cls._stacked_examples_for_candidate = with_plans
+    return lambda: setattr(cls, "_stacked_examples_for_candidate", plain)
+
+
+def check_trio_planes(stacks, builders, records, model, device, tag: str):
+    """Every stacked trio example equals the CUDA plan form's planes of
+    the same candidate, painted sample by sample (one launch per sample
+    per batch) and stacked, bit for bit. Returns the child plane's
+    PlanPredictor and plans (for the kernels-line entry)."""
+    import torch
+
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.io import examples as example_codec
+
+    if len(records) != len(stacks) or not records:
+        raise AssertionError(f"{tag}: {len(records)} examples, "
+                             f"{len(stacks)} stacks of plans")
+    predictors = [PlanPredictor(model, b.pileup_options, batch_size=BATCH,
+                                device=device) for b in builders]
+    mismatched = 0
+    with torch.inference_mode():
+        for i in range(0, len(stacks), BATCH):
+            chunk = stacks[i:i + BATCH]
+            planes = [p.encode([s[k].plan for s in chunk])[:len(chunk)]
+                      .cpu().numpy() for k, p in enumerate(predictors)]
+            images = np.concatenate(planes, axis=1)
+            for k, stack in enumerate(chunk):
+                ex = example_codec.parse_example(records[i + k])
+                if locus_key(ex.variant, ex.alt_allele_indices) != \
+                        locus_key(stack[0].variant, stack[0].alt_indices):
+                    raise AssertionError(f"{tag}: example {i + k} and its "
+                                         "plans are of other candidates")
+                if not np.array_equal(ex.image, images[k]):
+                    mismatched += 1
+    print(f"[{tag}] {len(records)} stacked examples "
+          f"({'+'.join(str(b.pileup_options.height) for b in builders)} "
+          f"rows) == the CUDA plan form's planes of the same candidates, "
+          f"painted sample by sample and stacked, bit for bit: "
+          f"{mismatched == 0} ({mismatched} differ)")
+    if mismatched:
+        raise AssertionError(f"{tag}: {mismatched} stacked examples differ "
+                             "from the plan form's planes")
+    child = [b.pileup_options.height for b in builders].index(
+        max(b.pileup_options.height for b in builders))
+    return predictors[child], [s[child].plan for s in stacks]
+
+
+def run_pipeline(main, argv, tag: str, tally: dict, card: str) -> float:
+    """A one-step product script's `main` in this process (its output
+    printed under `tag`), with each stage's seconds added to `tally`;
+    returns its wall seconds."""
+    from deepvariant_tpu_torch.make_examples import core
+    from deepvariant_tpu_torch.make_examples import multisample as ms
+    from deepvariant_tpu_torch.scripts import call_variants as cv_cli
+    from deepvariant_tpu_torch.scripts import postprocess_variants as pp_cli
+
+    examples = lambda args, result: result["examples"]  # noqa: E731
+    undo = [wrap(ms, "make_multisample_examples_runner", tally, "stage1",
+                 examples),
+            wrap(core, "make_examples_runner", tally, "stage1", examples),
+            wrap(cv_cli, "main", tally, "stage2"),
+            wrap(pp_cli, "main", tally, "stage3")]
+    start = time.time()
+    try:
+        quiet(main, argv, tag)
+    finally:
+        for u in undo:
+            u()
+    seconds = time.time() - start
+    print(f"[{tag}] {tally['stage1']} examples; stage 1 "
+          f"{tally['stage1_s']:.2f} s, stage 2 {tally['stage2_s']:.2f} s, "
+          f"stage 3 {tally['stage3_s']:.2f} s, {seconds:.2f} s in all, "
+          f"{tally['stage1'] / seconds:.2f} examples/s from the BAMs to the "
+          f"VCFs; host CPUs {os.cpu_count()}, beside {card}")
+    return seconds
+
+
+def float32_beside(examples: str, cvo_bf16: str, vcf_bf16: str,
+                   pp_argv: list, checkpoint: str, device, tag: str) -> dict:
+    """A script's examples once more through call_variants in float32
+    (TF32 off) on the card and on the CPU: the largest probability gap
+    between the two, and the VCF records that the card's bfloat16 CVOs
+    move against its float32 ones (the script's stage 3 on each)."""
+    import torch
+
+    from deepvariant_tpu_torch.calling.call_variants import (
+        call_variants,
+        read_cvos,
+    )
+    from deepvariant_tpu_torch.models.checkpoint import (
+        load_variables_for_examples,
+    )
+    from deepvariant_tpu_torch.scripts import postprocess_variants as pp_cli
+
+    cvos = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        model, _ = load_variables_for_examples(checkpoint, examples,
+                                               device=dev)
+        path = cvo_bf16.replace(".tfrecord", f".f32_{where}.tfrecord")
+        call_variants(examples, path, model, batch_size=BATCH, device=dev,
+                      dtype=torch.float32)
+        cvos[where] = {locus_key(c.variant, c.alt_allele_indices): c
+                       for c in read_cvos(path)}
+        cvos[where + "_path"] = path
+    bf16 = {locus_key(c.variant, c.alt_allele_indices): c
+            for c in read_cvos(cvo_bf16)}
+    if not (set(cvos["card"]) == set(cvos["cpu"]) == set(bf16)):
+        raise AssertionError(f"{tag}: the float32 and bfloat16 CVOs are of "
+                             "other candidates")
+    gap = max(float(np.abs(np.subtract(
+        cvos["card"][k].genotype_probabilities,
+        cvos["cpu"][k].genotype_probabilities)).max()) for k in bf16)
+    bf16_gap = max(float(np.abs(np.subtract(
+        cvos["card"][k].genotype_probabilities,
+        bf16[k].genotype_probabilities)).max()) for k in bf16)
+    vcf_f32 = vcf_bf16.replace(".vcf", ".f32.vcf")
+    argv = list(pp_argv)
+    argv[argv.index("--infile") + 1] = cvos["card_path"]
+    argv[argv.index("--outfile") + 1] = vcf_f32
+    quiet(pp_cli.main, argv, tag + " f32 stage 3")
+    a, b = vcf_records(vcf_bf16), vcf_records(vcf_f32)
+    if len(a) != len(b) or not a:
+        raise AssertionError(f"{tag}: {len(a)} bfloat16 and {len(b)} float32 "
+                             "VCF records")
+    moved = sum(x != y for x, y in zip(a, b))
+    if not np.isfinite(gap) or gap > F32_CARD_CPU_ATOL:
+        raise AssertionError(f"{tag}: the card's float32 CVOs are {gap} from "
+                             f"the CPU's (limit {F32_CARD_CPU_ATOL})")
+    print(f"[{tag}] {len(bf16)} CVOs: float32 card vs CPU max |dp| {gap:.3e} "
+          f"(limit {F32_CARD_CPU_ATOL}); bfloat16 vs float32 on the card max "
+          f"|dp| {bf16_gap:.3e}; {moved} of {len(a)} VCF records moved by "
+          "bfloat16")
+    return {"cvos": len(bf16), "f32_card_cpu_gap": gap,
+            "bf16_f32_gap": bf16_gap, "vcf_records": len(a),
+            "bf16_moved_records": moved}
+
+
+def time_stacked_cnn(examples: str, tag: str, device, card: str) -> dict:
+    """The bfloat16 InceptionV3(7) at the examples' height, batch BATCH of
+    the examples repeated, on the card (CUDA events): ms per batch back
+    to back and call by call, and the peak of allocated memory."""
+    import torch
+
+    from deepvariant_tpu_torch.calling.call_variants import Predictor
+    from deepvariant_tpu_torch.io import examples as example_codec
+
+    images = [example_codec.parse_example(r).image
+              for r in example_records(examples)]
+    batch = np.stack([images[i % len(images)] for i in range(BATCH)])
+    predictor = Predictor(seeded_model(batch.shape[-1]), BATCH, device,
+                          torch.bfloat16)
+    x = torch.from_numpy(batch).to(device)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        predictor.forward(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        numbers = {
+            "cnn_device_ms": device_ms(lambda: predictor.forward(x), reps=3),
+            "cnn_ms": time_ms(lambda: predictor.forward(x), reps=10),
+            "peak_allocated_gib": peak / 2 ** 30,
+            "peak_above_resident_gib": (peak - base) / 2 ** 30,
+        }
+    h, w, c = batch.shape[1:]
+    print(f"[{tag}] bfloat16 InceptionV3({c}) at {h}x{w}x{c}, batch {BATCH} "
+          f"of {len(images)} examples repeated: {numbers['cnn_device_ms']:.3f}"
+          f" ms back to back, {numbers['cnn_ms']:.3f} ms call by call; peak "
+          f"allocated {numbers['peak_allocated_gib']:.3f} GiB "
+          f"({numbers['peak_above_resident_gib']:.3f} above the weights and "
+          f"the batch); {card}")
+    del predictor, x
+    return {f"{k}_{h}": v for k, v in numbers.items()}
+
+
+def phase_multisample(tmp: str, device, card: str):
+    """Phase 16: multi-sample make_examples and the three one-step
+    product scripts on the card. Returns (numbers, the kernels-line entry
+    of the trio planes painted by the plan form, with its launches)."""
+    import torch
+
+    from deepvariant_tpu_torch.calling.call_variants import read_cvos
+    from deepvariant_tpu_torch.io import examples as example_codec
+    from deepvariant_tpu_torch.models.checkpoint import save_variables
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.scripts import multisample_make_examples
+    from deepvariant_tpu_torch.scripts import run_deepsomatic
+    from deepvariant_tpu_torch.scripts import run_deeptrio
+    from deepvariant_tpu_torch.scripts import run_pangenome_aware_deepvariant
+
+    phase_start = time.time()
+    tag = "multisample"
+    directory = os.path.join(tmp, tag)
+    paths = multisample_inputs(directory, tag)
+    model = seeded_model(MULTISAMPLE_CHANNELS)
+    # No example_info.json beside it: one checkpoint for every height.
+    checkpoint = os.path.join(directory, "ckpt", "model.msgpack")
+    save_variables(checkpoint, model)
+    numbers = {}
+
+    # -- run_deeptrio: child and both parents, 40/60/40 rows --
+    ttag = tag + " deeptrio"
+    f = paths["family"]
+    out = os.path.join(directory, "deeptrio")
+    stacks, builders, tally = [], [], {}
+    undo = collect_trio_plans(stacks, builders)
+    try:
+        seconds = run_pipeline(run_deeptrio.main, [
+            "--ref", f["ref"], "--reads_child", f["child"],
+            "--reads_parent1", f["parent1"], "--reads_parent2",
+            f["parent2"],
+            "--output_vcf_child", os.path.join(out, "child.vcf.gz"),
+            "--output_vcf_parent1", os.path.join(out, "parent1.vcf.gz"),
+            "--output_vcf_parent2", os.path.join(out, "parent2.vcf.gz"),
+            "--checkpoint_child", checkpoint, "--checkpoint_parent",
+            checkpoint, "--batch_size", str(BATCH), "--device", device.type,
+            "--intermediate_results_dir", os.path.join(out, "work")],
+            ttag, tally, card)
+    finally:
+        undo()
+    numbers["deeptrio"] = dict(tally, seconds=seconds)
+    roles = ("child", "parent1", "parent2")
+    if len(stacks) != 3:
+        raise AssertionError(f"{ttag}: {len(stacks)} runner calls, not 3")
+    pp.paint_pileup.launches = 0
+    planes = {}
+    for role, target, target_builders in zip(roles, stacks, builders):
+        planes[role] = check_trio_planes(
+            target, target_builders, example_records(os.path.join(
+                out, "work", f"make_examples_{role}.tfrecord.gz")),
+            model, device, f"{ttag} {role}")
+    launches = pp.paint_pileup.launches
+    print(f"[{ttag}] plan form launches painting the three targets' planes: "
+          f"{launches}")
+    predictor, plans = planes["child"]
+    entry = from_files_entry("pileup_paint_plan_trio_planes", predictor,
+                             plans, ttag, card)
+    entry["launches"] = launches
+    del predictor, planes
+
+    routes = {}
+    for role in roles:
+        routes[f"deeptrio_{role}"] = dict(
+            examples=os.path.join(out, "work",
+                                  f"make_examples_{role}.tfrecord.gz"),
+            cvos=os.path.join(out, "work", f"cvo_{role}.tfrecord.gz"),
+            vcf=os.path.join(out, f"{role}.vcf.gz"), sample=role, ref=f["ref"],
+            extra=[], height=140)
+    # -- run_deepsomatic: the pair with a panel of normals, the tumour alone --
+    s = paths["pair"]
+    for name, more in (("deepsomatic", ["--reads_normal", s["normal"],
+                                        "--pon_filtering", s["pon"]]),
+                       ("deepsomatic_tumor_only", [])):
+        out = os.path.join(directory, name)
+        tally = {}
+        seconds = run_pipeline(run_deepsomatic.main, [
+            "--ref", s["ref"], "--reads_tumor", s["tumor"], *more,
+            "--output_vcf", os.path.join(out, "somatic.vcf.gz"),
+            "--checkpoint", checkpoint, "--batch_size", str(BATCH),
+            "--device", device.type,
+            "--intermediate_results_dir", os.path.join(out, "work")],
+            f"{tag} {name}", tally, card)
+        numbers[name] = dict(tally, seconds=seconds)
+        routes[name] = dict(
+            examples=os.path.join(out, "work",
+                                  "make_examples_somatic.tfrecord.gz"),
+            cvos=os.path.join(out, "work", "cvo_somatic.tfrecord.gz"),
+            vcf=os.path.join(out, "somatic.vcf.gz"), sample="tumor",
+            ref=s["ref"], extra=["--process_somatic"] + (
+                ["--pon_filtering", s["pon"]] if more else []),
+            height=200 if more else 100)
+    filters = [line.split("\t")[6] for line in
+               vcf_records(routes["deepsomatic"]["vcf"])]
+    numbers["deepsomatic_filters"] = {
+        f: filters.count(f) for f in sorted(set(filters))}
+    print(f"[{tag} deepsomatic] FILTER column of the somatic VCF: "
+          f"{numbers['deepsomatic_filters']} (PON marks PASS records in the "
+          "panel of normals)")
+    # -- run_pangenome_aware_deepvariant with the GBZ panel --
+    g = paths["pangenome"]
+    out = os.path.join(directory, "pangenome")
+    tally = {}
+    seconds = run_pipeline(run_pangenome_aware_deepvariant.main, [
+        "--ref", g["ref"], "--reads", g["reads"], "--pangenome", g["panel"],
+        "--output_vcf", os.path.join(out, "pangenome.vcf.gz"),
+        "--checkpoint", checkpoint, "--batch_size", str(BATCH),
+        "--device", device.type,
+        "--intermediate_results_dir", os.path.join(out, "work")],
+        f"{tag} pangenome", tally, card)
+    numbers["pangenome"] = dict(tally, seconds=seconds)
+    routes["pangenome"] = dict(
+        examples=os.path.join(out, "work",
+                              "make_examples_pangenome.tfrecord.gz"),
+        cvos=os.path.join(out, "work", "cvo_pangenome.tfrecord.gz"),
+        vcf=os.path.join(out, "pangenome.vcf.gz"), sample="default",
+        ref=g["ref"], extra=[], height=200)
+
+    # -- every VCF: stage 3 on its CVOs, then float32 beside bfloat16 --
+    for name, d in routes.items():
+        info = example_codec.read_example_info(d["examples"])
+        want = d["height"]
+        if list(info["shape"]) != [want, 221, MULTISAMPLE_CHANNELS]:
+            raise AssertionError(f"{tag} {name}: examples of shape "
+                                 f"{info['shape']}, not {want}x221x7")
+        cvos = list(read_cvos(d["cvos"]))
+        probs = np.array([c.genotype_probabilities for c in cvos])
+        if not len(cvos) or not np.isfinite(probs).all():
+            raise AssertionError(f"{tag} {name}: {len(cvos)} CVOs, finite "
+                                 f"{np.isfinite(probs).all()}")
+        options = {}
+        if "--process_somatic" in d["extra"]:
+            options = {"process_somatic": True, "pon_vcf_path": (
+                d["extra"][-1] if "--pon_filtering" in d["extra"] else None)}
+        check_vcf(d["vcf"], cvos, d["ref"], d["sample"], f"{tag} {name}",
+                  card, **options)
+        pp_argv = ["--ref", d["ref"], "--infile", d["cvos"], "--outfile",
+                   d["vcf"], "--sample_name", d["sample"], *d["extra"]]
+        numbers[name + "_f32"] = float32_beside(
+            d["examples"], d["cvos"], d["vcf"], pp_argv, checkpoint, device,
+            f"{tag} {name}")
+
+    # -- the CLI's trio at 100/100/100 rows: 300x221x7 --
+    ctag = tag + " cli trio"
+    cli_examples = os.path.join(directory, "cli", "trio.tfrecord.gz")
+    os.makedirs(os.path.dirname(cli_examples))
+    start = time.time()
+    quiet(multisample_make_examples.main, [
+        "trio", "--ref", f["ref"], "--reads_child", f["child"],
+        "--reads_parent1", f["parent1"], "--reads_parent2", f["parent2"],
+        "--examples", cli_examples, "--no-realign_reads"], ctag)
+    numbers["cli_trio_s"] = time.time() - start
+    if list(example_codec.read_example_info(cli_examples)["shape"]) != \
+            [300, 221, MULTISAMPLE_CHANNELS]:
+        raise AssertionError(f"{ctag}: the CLI's trio is not 300x221x7")
+
+    # -- the CNN at the stacked heights --
+    for examples, height_tag in (
+            (routes["deeptrio_child"]["examples"], "deeptrio"),
+            (routes["deepsomatic"]["examples"], "deepsomatic"),
+            (cli_examples, "cli trio")):
+        numbers.update(time_stacked_cnn(examples, f"{tag} {height_tag}",
+                                        device, card))
+    numbers["phase16_s"] = time.time() - phase_start
+    print(f"[{tag}] phase 16 {numbers['phase16_s']:.1f} s; {card}")
+    return numbers, entry
+
+
 def main() -> int:
     import torch
 
@@ -4100,6 +4571,13 @@ def main() -> int:
         del bam_route
         summary.update(small_numbers)
         kernels.append(small_kernel)
+        # Multi-sample make_examples and the DeepTrio, DeepSomatic and
+        # pangenome-aware one-step scripts; the trio planes painted by the
+        # plan form.
+        multisample_numbers, multisample_kernel = phase_multisample(
+            tmp, device, card)
+        summary["multisample"] = multisample_numbers
+        kernels.append(multisample_kernel)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)

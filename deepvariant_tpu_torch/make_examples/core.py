@@ -1150,6 +1150,71 @@ class RegionProcessor:
             out = kept
         return out
 
+    def should_filter_low_vaf(self, candidate, batch) -> bool:
+        """Low-VAF candidate filter (make_examples_core.py:1656-1711).
+
+        Applied by the multi-sample pipelines (multisample.py), not by
+        this class's `process`: a candidate is dropped when every alt
+        allele has VAF <= low_vaf_threshold AND fails the rescue
+        criteria (supporting reads' average base quality and mapping
+        quality both clearing the configured maxima keeps the
+        allele)."""
+        o = self.options
+        if not getattr(o, "filter_low_vaf_candidates", False):
+            return False
+        n_ref = len(candidate.ref_support)
+        so = batch.seq_offsets
+        for alt, read_ids in candidate.allele_support.items():
+            if not read_ids:
+                continue
+            dp = len(read_ids) + n_ref
+            if dp == 0:
+                continue
+            vaf = len(read_ids) / dp
+            if vaf > o.low_vaf_threshold:
+                return False
+            avg_bq = float(np.mean([
+                batch.qual[so[r] : so[r + 1]].mean() for r in read_ids
+            ]))
+            avg_mapq = float(np.mean([
+                batch.mapq[r] for r in read_ids
+            ]))
+            if (avg_bq >= o.low_vaf_max_base_quality
+                    and avg_mapq >= o.low_vaf_max_mapping_quality):
+                return False
+        return True
+
+    def assign_phase_from_normal(
+        self, tumor_candidates, num_reads: int, normal_phased_variants
+    ) -> List[int]:
+        """Phase tumor reads from the matched normal's phased variants
+        (assign_phase_from_normal, make_examples_core.py:2788-2830):
+        at every tumor candidate position the normal phased, votes
+        accrue to reads supporting the phase-1/phase-2 allele bases,
+        then the standard count thresholds assign 0/1/2 per read. Called
+        by the multi-sample pipelines (multisample.py)."""
+        by_pos = {pv.position: pv for pv in normal_phased_variants}
+        counts = [[0, 0, 0] for _ in range(num_reads)]
+        for candidate in tumor_candidates:
+            pv = by_pos.get(candidate.variant.start)
+            if pv is None:
+                continue
+            support = {"REF": candidate.ref_support}
+            support.update(candidate.allele_support)
+            for allele, read_ids in support.items():
+                if allele == pv.phase_1_bases:
+                    key = 1
+                elif allele == pv.phase_2_bases:
+                    key = 2
+                else:
+                    continue
+                for rid in read_ids:
+                    if 0 <= rid < num_reads:
+                        counts[rid][key] += 1
+        return [
+            _phased_genotype_from_counts(c[1], c[2]) for c in counts
+        ]
+
     def _small_model_context_vafs(self, dv_call) -> Optional[List[int]]:
         """Context VAF features in offset order
         (encode_variant_allele_frequency_at_position,

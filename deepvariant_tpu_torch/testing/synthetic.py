@@ -39,6 +39,17 @@ and tabix-indexed by the port's own writers, each only when asked for.
 `keras_inception_stand_in` is a seeded numpy stand-in of a keras
 InceptionV3, layers and weights in keras's order and layouts, for the
 keras import where TensorFlow is not installed.
+
+The multi-sample inputs share one reference and the reads of
+`synthetic_sample` (`_contig_reads`): `synthetic_family` (two parents
+whose haplotypes carry the planted alleles or the reference, a child of
+one haplotype of each plus de novo SNPs), `synthetic_tumor_normal` (a
+germline normal, and a tumour at twice its depth with somatic variants
+at allele fractions of about 0.05-0.4) and `synthetic_pangenome` (a read
+set and a panel of 16 haplotypes, each carrying a subset of the planted
+alleles; `panel_sample` writes it as a BAM of haplotype alignments,
+`panel_graph` and `write_panel_gbz` as a GBZ). `write_bam` writes any of
+their samples, with the contig names' prefix cut where asked.
 """
 
 from __future__ import annotations
@@ -155,6 +166,114 @@ def _read_from(ref, by_pos, start: int, hap: int, length: int):
     return seq, cigar
 
 
+def _contig_reads(rng, rows: List[dict], serial: int, ref_id: int,
+                  n_contigs: int, ref: np.ndarray, by_pos: dict, depth: int,
+                  read_length, skip_fraction: float,
+                  fragment_variants=None):
+    """Append one contig's paired reads, drawn from the haplotypes of
+    `by_pos`, to `rows`; returns (the next fragment serial, the last
+    read length drawn). `fragment_variants(rng, hap)`, where given, is
+    the {pos: variant} map one fragment of haplotype `hap` is read
+    from."""
+    lengths = [read_length] if isinstance(read_length, int) \
+        else list(read_length)
+    n_pairs = depth * len(ref) * len(lengths) // (2 * sum(lengths))
+    for _ in range(n_pairs):
+        read_length = lengths[0] if len(lengths) == 1 else \
+            int(lengths[rng.randint(len(lengths))])
+        insert = int(np.clip(rng.normal(400, 60), read_length + 10, 700))
+        start = int(rng.randint(0, max(1, len(ref) - insert - 20)))
+        hap = int(rng.randint(2))
+        # A tumour's fragment carries the somatic variants of its cell;
+        # drawn only for a sample that has them.
+        fragment = by_pos if fragment_variants is None else \
+            fragment_variants(rng, hap)
+        name_i = f"frag{serial:06d}"
+        serial += 1
+        mapq = int(rng.randint(0, 5)) if rng.rand() < 0.05 else \
+            int(rng.randint(20, 61))
+        kind = rng.rand()
+        ends = []
+        for which, s in ((0, start), (1, start + insert - read_length)):
+            seq, cigar = _read_from(ref, fragment, s, hap, read_length)
+            if skip_fraction and rng.rand() < skip_fraction and \
+                    cigar[0][1] > 80:
+                # The bases under the skip leave the read.
+                k = int(rng.randint(20, 41))
+                a = int(rng.randint(20, cigar[0][1] - k - 10))
+                rest = cigar[0][1] - a - k
+                cigar[0:1] = [[_M, a], [_N, k], [_M, rest]]
+                del seq[a:a + k]
+            seq = np.array(seq, np.uint8)
+            # Substitution errors and base qualities.
+            errs = np.flatnonzero(rng.rand(len(seq)) < 0.004)
+            seq[errs] = _BASES[rng.randint(0, 4, len(errs))]
+            qual = rng.randint(20, 41, len(seq)).astype(np.uint8)
+            low = rng.rand(len(seq)) < 0.03
+            qual[low] = rng.randint(2, 10, int(low.sum()))
+            pos = s
+            # Soft clips: the clipped bases stay in the read, the
+            # alignment starts after them.
+            if rng.rand() < 0.08 and cigar[0][0] == _M and \
+                    cigar[0][1] > 25:
+                k = int(rng.randint(3, 21))
+                cigar[0][1] -= k
+                cigar.insert(0, [_S, k])
+                seq[:k] = _BASES[rng.randint(0, 4, k)]
+                pos += k
+            if rng.rand() < 0.08 and cigar[-1][0] == _M and \
+                    cigar[-1][1] > 25:
+                k = int(rng.randint(3, 21))
+                cigar[-1][1] -= k
+                cigar.append([_S, k])
+                seq[-k:] = _BASES[rng.randint(0, 4, k)]
+            if rng.rand() < 0.02:
+                if rng.rand() < 0.5:
+                    cigar.insert(0, [_H, int(rng.randint(5, 40))])
+                else:
+                    cigar.append([_H, int(rng.randint(5, 40))])
+            ends.append(dict(pos=pos, seq=seq, qual=qual, cigar=cigar,
+                             which=which))
+        for e, mate in ((ends[0], ends[1]), (ends[1], ends[0])):
+            which = e["which"]
+            flag = 0x1 | 0x2 | (0x40 if which == 0 else 0x80)
+            flag |= 0x10 if which == 1 else 0x20
+            mate_ref, mate_pos = ref_id, mate["pos"]
+            tlen = insert if which == 0 else -insert
+            this_mapq = mapq
+            if kind < 0.04:
+                # Unpaired fragment: only its first read is kept.
+                if which == 1:
+                    continue
+                flag, mate_ref, mate_pos, tlen = 0, -1, -1, 0
+            elif kind < 0.06:
+                # Mate on the other contig, not a proper pair.
+                flag &= ~0x2
+                mate_ref = (ref_id + 1) % n_contigs
+                mate_pos = int(rng.randint(0, 1000))
+                tlen = 0
+            elif kind < 0.08:
+                flag = (flag & ~0x2) | 0x8     # mate unmapped
+                tlen = 0
+            elif kind < 0.10:
+                flag |= 0x100 if which == 0 else 0x800
+            elif kind < 0.11:
+                flag |= 0x200                  # vendor QC fail
+            aux = b"NMC" + bytes([int(rng.randint(0, 6))]) + \
+                b"RGZrg1\x00"
+            if rng.rand() < 0.3:
+                aux += b"HPC" + bytes([int(rng.randint(1, 3))])
+            row = dict(name=name_i, flag=flag, ref_id=ref_id,
+                       pos=e["pos"], mapq=this_mapq, seq=e["seq"],
+                       qual=e["qual"], cigar=e["cigar"],
+                       mate_ref_id=mate_ref, mate_pos=mate_pos,
+                       tlen=tlen, aux=aux)
+            rows.append(row)
+            if rng.rand() < 0.03:
+                rows.append(dict(row, flag=flag | 0x400))
+    return serial, read_length
+
+
 def synthetic_sample(
     seed: int,
     contig_lengths: Sequence[Tuple[str, int]] = (("chr1", 6000),
@@ -185,98 +304,9 @@ def synthetic_sample(
         planted = _plant(rng, ref, variant_spacing)
         variants[name] = planted
         by_pos = {v["pos"]: v for v in planted}
-        lengths = [read_length] if isinstance(read_length, int) \
-            else list(read_length)
-        n_pairs = depth * length * len(lengths) // (2 * sum(lengths))
-        for _ in range(n_pairs):
-            read_length = lengths[0] if len(lengths) == 1 else \
-                int(lengths[rng.randint(len(lengths))])
-            insert = int(np.clip(rng.normal(400, 60), read_length + 10, 700))
-            start = int(rng.randint(0, max(1, length - insert - 20)))
-            hap = int(rng.randint(2))
-            name_i = f"frag{serial:06d}"
-            serial += 1
-            mapq = int(rng.randint(0, 5)) if rng.rand() < 0.05 else \
-                int(rng.randint(20, 61))
-            kind = rng.rand()
-            ends = []
-            for which, s in ((0, start), (1, start + insert - read_length)):
-                seq, cigar = _read_from(ref, by_pos, s, hap, read_length)
-                if skip_fraction and rng.rand() < skip_fraction and \
-                        cigar[0][1] > 80:
-                    # The bases under the skip leave the read.
-                    k = int(rng.randint(20, 41))
-                    a = int(rng.randint(20, cigar[0][1] - k - 10))
-                    rest = cigar[0][1] - a - k
-                    cigar[0:1] = [[_M, a], [_N, k], [_M, rest]]
-                    del seq[a:a + k]
-                seq = np.array(seq, np.uint8)
-                # Substitution errors and base qualities.
-                errs = np.flatnonzero(rng.rand(len(seq)) < 0.004)
-                seq[errs] = _BASES[rng.randint(0, 4, len(errs))]
-                qual = rng.randint(20, 41, len(seq)).astype(np.uint8)
-                low = rng.rand(len(seq)) < 0.03
-                qual[low] = rng.randint(2, 10, int(low.sum()))
-                pos = s
-                # Soft clips: the clipped bases stay in the read, the
-                # alignment starts after them.
-                if rng.rand() < 0.08 and cigar[0][0] == _M and \
-                        cigar[0][1] > 25:
-                    k = int(rng.randint(3, 21))
-                    cigar[0][1] -= k
-                    cigar.insert(0, [_S, k])
-                    seq[:k] = _BASES[rng.randint(0, 4, k)]
-                    pos += k
-                if rng.rand() < 0.08 and cigar[-1][0] == _M and \
-                        cigar[-1][1] > 25:
-                    k = int(rng.randint(3, 21))
-                    cigar[-1][1] -= k
-                    cigar.append([_S, k])
-                    seq[-k:] = _BASES[rng.randint(0, 4, k)]
-                if rng.rand() < 0.02:
-                    if rng.rand() < 0.5:
-                        cigar.insert(0, [_H, int(rng.randint(5, 40))])
-                    else:
-                        cigar.append([_H, int(rng.randint(5, 40))])
-                ends.append(dict(pos=pos, seq=seq, qual=qual, cigar=cigar,
-                                 which=which))
-            for e, mate in ((ends[0], ends[1]), (ends[1], ends[0])):
-                which = e["which"]
-                flag = 0x1 | 0x2 | (0x40 if which == 0 else 0x80)
-                flag |= 0x10 if which == 1 else 0x20
-                mate_ref, mate_pos = ref_id, mate["pos"]
-                tlen = insert if which == 0 else -insert
-                this_mapq = mapq
-                if kind < 0.04:
-                    # Unpaired fragment: only its first read is kept.
-                    if which == 1:
-                        continue
-                    flag, mate_ref, mate_pos, tlen = 0, -1, -1, 0
-                elif kind < 0.06:
-                    # Mate on the other contig, not a proper pair.
-                    flag &= ~0x2
-                    mate_ref = (ref_id + 1) % len(names)
-                    mate_pos = int(rng.randint(0, 1000))
-                    tlen = 0
-                elif kind < 0.08:
-                    flag = (flag & ~0x2) | 0x8     # mate unmapped
-                    tlen = 0
-                elif kind < 0.10:
-                    flag |= 0x100 if which == 0 else 0x800
-                elif kind < 0.11:
-                    flag |= 0x200                  # vendor QC fail
-                aux = b"NMC" + bytes([int(rng.randint(0, 6))]) + \
-                    b"RGZrg1\x00"
-                if rng.rand() < 0.3:
-                    aux += b"HPC" + bytes([int(rng.randint(1, 3))])
-                row = dict(name=name_i, flag=flag, ref_id=ref_id,
-                           pos=e["pos"], mapq=this_mapq, seq=e["seq"],
-                           qual=e["qual"], cigar=e["cigar"],
-                           mate_ref_id=mate_ref, mate_pos=mate_pos,
-                           tlen=tlen, aux=aux)
-                rows.append(row)
-                if rng.rand() < 0.03:
-                    rows.append(dict(row, flag=flag | 0x400))
+        serial, read_length = _contig_reads(
+            rng, rows, serial, ref_id, len(names), ref, by_pos, depth,
+            read_length, skip_fraction)
     return dict(contigs=list(contig_lengths), reference=reference,
                 variants=variants, reads=_pack_reads(rows),
                 sample_name=sample_name)
@@ -711,19 +741,31 @@ def bgzip_with_gzi(src: str, dst: str, bgzf_module,
     return dst
 
 
+def write_bam(sample: dict, path: str, types_module, bam_module,
+              bam_writer_module, contig_prefix: str = "") -> str:
+    """The sample's reads as an indexed BAM at `path` (+ .bai), written
+    with one package's writers. `contig_prefix` is cut from the front of
+    each contig name in the header, as a BAM aligned to a reference
+    that names chr1 "1" has them."""
+    contigs = [types_module.ContigInfo(
+        n[len(contig_prefix):] if contig_prefix and
+        n.startswith(contig_prefix) else n, length, i)
+        for i, (n, length) in enumerate(sample["contigs"])]
+    with bam_writer_module.BamWriter(
+            path, contigs, sample_name=sample["sample_name"]) as w:
+        w.write_batch(read_batch(sample, bam_module))
+    bam_writer_module.build_bam_index(path)
+    return path
+
+
 def write_inputs(sample: dict, directory: str, types_module, bam_module,
                  bam_writer_module) -> Dict[str, str]:
     """Write `ref.fa` (+ .fai) and the indexed `reads.bam` (+ .bai) with
     one package's writers; returns their paths."""
     os.makedirs(directory, exist_ok=True)
     ref_path = write_fasta(sample, os.path.join(directory, "ref.fa"))
-    bam_path = os.path.join(directory, "reads.bam")
-    contigs = [types_module.ContigInfo(n, length, i)
-               for i, (n, length) in enumerate(sample["contigs"])]
-    with bam_writer_module.BamWriter(
-            bam_path, contigs, sample_name=sample["sample_name"]) as w:
-        w.write_batch(read_batch(sample, bam_module))
-    bam_writer_module.build_bam_index(bam_path)
+    bam_path = write_bam(sample, os.path.join(directory, "reads.bam"),
+                         types_module, bam_module, bam_writer_module)
     return dict(ref=ref_path, reads=bam_path)
 
 
@@ -944,6 +986,305 @@ def write_truth_inputs(sample: dict, directory: str,
     with open(bed_path, "w") as f:
         f.writelines(f"{n}\t{a}\t{b}\n" for n, a, b in bed)
     return dict(truth=path, confident=bed_path)
+
+
+# -- multi-sample inputs: a family, a tumour/normal pair, a panel ------------
+
+def _germline(rng, contig_lengths: Sequence[Tuple[str, int]],
+              variant_spacing: int):
+    """({contig: reference bases}, {contig: planted variants})."""
+    reference, planted = {}, {}
+    for name, length in contig_lengths:
+        reference[name] = _reference(rng, length)
+        planted[name] = _plant(rng, reference[name], variant_spacing)
+    return reference, planted
+
+
+def _site(pos: int, hap0, hap1):
+    """The planted-variant dict (pos, alleles, haps) of a site whose two
+    haplotypes carry the alleles `hap0` and `hap1` (None: the reference),
+    or None where both carry the reference."""
+    if hap0 is None and hap1 is None:
+        return None
+    if hap0 is None or hap1 is None:
+        return dict(pos=pos, alleles=[hap0 or hap1],
+                    haps=(0,) if hap1 is None else (1,))
+    if hap0 == hap1:
+        return dict(pos=pos, alleles=[hap0], haps=(0, 1))
+    return dict(pos=pos, alleles=[hap0, hap1], haps=(0, 1))
+
+
+def _sites(planted: List[dict], pairs) -> List[dict]:
+    return [s for s in (_site(v["pos"], a, b)
+                        for v, (a, b) in zip(planted, pairs)) if s]
+
+
+def _free_positions(ref: np.ndarray, planted: List[dict]) -> List[int]:
+    """Positions halfway between consecutive planted variants, with
+    A, C, G or T on the 12 bases either side."""
+    out = []
+    for a, b in zip(planted, planted[1:]):
+        mid = (a["pos"] + b["pos"]) // 2
+        window = ref[mid - 12:mid + 13]
+        if mid + 200 < len(ref) and not (window == ord("N")).any():
+            out.append(mid)
+    return out
+
+
+def _reads_sample(rng, contig_lengths, reference, sites, depth: int,
+                  sample_name: str, fragment_variants=None) -> dict:
+    """A sample of the same form as `synthetic_sample`'s over `reference`,
+    its 150-base paired reads drawn from the haplotypes of `sites`
+    ({contig: planted-variant dicts}). `fragment_variants(contig,
+    by_pos)` gives the per-fragment map of `_contig_reads`."""
+    rows: List[dict] = []
+    serial = 0
+    for ref_id, (name, _) in enumerate(contig_lengths):
+        by_pos = {v["pos"]: v for v in sites[name]}
+        serial, _ = _contig_reads(
+            rng, rows, serial, ref_id, len(contig_lengths), reference[name],
+            by_pos, depth, 150, 0.0,
+            None if fragment_variants is None
+            else fragment_variants(name, by_pos))
+    return dict(contigs=list(contig_lengths), reference=reference,
+                variants=sites, reads=_pack_reads(rows),
+                sample_name=sample_name)
+
+
+def synthetic_family(
+    seed: int,
+    contig_lengths: Sequence[Tuple[str, int]] = (("chr1", 10000),),
+    depth_child: int = 30,
+    depth_parents: Tuple[int, int] = (20, 25),
+    variant_spacing: int = 70,
+    de_novo_per_contig: int = 3,
+) -> dict:
+    """A trio over one reference: {"parent1", "child", "parent2"}, each a
+    sample of `synthetic_sample`'s form sharing one `reference` dict,
+    and "de_novo" {contig: the child's de novo variants}.
+
+    Each parent's haplotypes carry, at each planted site, the reference
+    (a share of 0.4) or one of the site's alleles; the child takes one
+    haplotype of each parent per contig (no recombination), plus
+    `de_novo_per_contig` SNPs per contig, halfway between planted
+    variants, on its own reads only."""
+    rng = np.random.RandomState(seed)
+    reference, planted = _germline(rng, contig_lengths, variant_spacing)
+    parents = []
+    for _ in range(2):
+        parents.append({name: [tuple(
+            None if rng.rand() < 0.4 else
+            v["alleles"][rng.randint(len(v["alleles"]))] for _ in range(2))
+            for v in planted[name]] for name, _ in contig_lengths})
+    child, de_novo = {}, {}
+    for name, _ in contig_lengths:
+        t1, t2 = int(rng.randint(2)), int(rng.randint(2))
+        pairs = [(a[t1], b[t2])
+                 for a, b in zip(parents[0][name], parents[1][name])]
+        free = _free_positions(reference[name], planted[name])
+        picks = free[len(free) // (2 * de_novo_per_contig)::
+                     max(1, len(free) // de_novo_per_contig)]
+        de_novo[name] = []
+        for pos in picks[:de_novo_per_contig]:
+            ref_base = chr(reference[name][pos])
+            others = [b for b in "ACGT" if b != ref_base]
+            de_novo[name].append(dict(
+                pos=pos, alleles=[("snp", others[rng.randint(3)])],
+                haps=(int(rng.randint(2)),), de_novo=True))
+        child[name] = sorted(_sites(planted[name], pairs) + de_novo[name],
+                             key=lambda v: v["pos"])
+    depths = (depth_parents[0], depth_child, depth_parents[1])
+    family = {}
+    for role, sites, depth in (
+            ("parent1", {n: _sites(planted[n], parents[0][n])
+                         for n, _ in contig_lengths}, depths[0]),
+            ("child", child, depths[1]),
+            ("parent2", {n: _sites(planted[n], parents[1][n])
+                         for n, _ in contig_lengths}, depths[2])):
+        family[role] = _reads_sample(rng, contig_lengths, reference, sites,
+                                     depth, role)
+    family["de_novo"] = de_novo
+    return family
+
+
+def synthetic_tumor_normal(
+    seed: int,
+    contig_lengths: Sequence[Tuple[str, int]] = (("chr1", 10000),),
+    normal_depth: int = 25,
+    tumor_depth: int = 50,
+    variant_spacing: int = 70,
+    vaf_range: Tuple[float, float] = (0.05, 0.4),
+) -> dict:
+    """A tumour/normal pair over one reference: {"normal", "tumor"}, each
+    a sample of `synthetic_sample`'s form, and "somatic" {contig:
+    somatic variants, each with its "vaf"}.
+
+    The normal carries the planted (germline) variants. The tumour, at
+    `tumor_depth`, carries them too, plus a somatic SNP, insertion or
+    deletion halfway between every other pair of planted variants, on
+    one haplotype, at an allele fraction drawn from `vaf_range`: a
+    fragment of that haplotype carries it when the fragment's cell
+    draw falls under twice its fraction."""
+    rng = np.random.RandomState(seed)
+    reference, planted = _germline(rng, contig_lengths, variant_spacing)
+    somatic = {}
+    for name, _ in contig_lengths:
+        somatic[name] = []
+        for k, pos in enumerate(
+                _free_positions(reference[name], planted[name])[::2]):
+            ref_base = chr(reference[name][pos])
+            others = [b for b in "ACGT" if b != ref_base]
+            kind = ("snp", "snp", "snp", "ins", "del")[k % 5]
+            if kind == "snp":
+                allele = ("snp", others[rng.randint(3)])
+            elif kind == "ins":
+                allele = ("ins", "".join(
+                    "ACGT"[i] for i in rng.randint(0, 4, rng.randint(1, 4))))
+            else:
+                allele = ("del", int(rng.randint(1, 4)))
+            somatic[name].append(dict(
+                pos=pos, alleles=[allele], haps=(int(rng.randint(2)),),
+                vaf=float(np.round(rng.uniform(*vaf_range), 3))))
+    normal = _reads_sample(rng, contig_lengths, reference, planted,
+                           normal_depth, "normal")
+
+    def cells(name, by_pos):
+        def fragment(rng, hap):
+            u = rng.rand()
+            carried = {v["pos"]: v for v in somatic[name]
+                       if v["haps"][0] == hap and u < 2 * v["vaf"]}
+            return {**by_pos, **carried} if carried else by_pos
+        return fragment
+
+    tumor = _reads_sample(rng, contig_lengths, reference, planted,
+                          tumor_depth, "tumor", cells)
+    tumor["variants"] = {
+        name: sorted(planted[name] + somatic[name], key=lambda v: v["pos"])
+        for name, _ in contig_lengths}
+    return dict(normal=normal, tumor=tumor, somatic=somatic)
+
+
+def synthetic_pangenome(
+    seed: int,
+    contig_lengths: Sequence[Tuple[str, int]] = (("chr1", 10000),),
+    depth: int = 30,
+    variant_spacing: int = 70,
+    n_haplotypes: int = 16,
+    carry: float = 0.5,
+    reference_sample: str = "GRCh38",
+) -> dict:
+    """A read set and a haplotype panel over one reference: {"reads": a
+    sample of `synthetic_sample`'s form, "panel": the panel}.
+
+    The panel holds `n_haplotypes` haplotypes, each carrying, at each
+    planted site, one of the site's alleles with probability `carry`
+    and the reference otherwise. `panel_sample` writes it as a BAM of
+    haplotype alignments, `panel_graph` and `write_panel_gbz` as a GBZ
+    with a reference path named `reference_sample` per contig."""
+    rng = np.random.RandomState(seed)
+    reference, planted = _germline(rng, contig_lengths, variant_spacing)
+    reads = _reads_sample(rng, contig_lengths, reference, planted, depth,
+                          "reads")
+    haplotypes = [{name: [
+        v["alleles"][rng.randint(len(v["alleles"]))]
+        if rng.rand() < carry else None for v in planted[name]]
+        for name, _ in contig_lengths} for _ in range(n_haplotypes)]
+    panel = dict(contigs=list(contig_lengths), reference=reference,
+                 planted=planted, haplotypes=haplotypes,
+                 reference_sample=reference_sample)
+    return dict(reads=reads, panel=panel)
+
+
+def panel_sample(panel: dict, read_length: int = 1000,
+                 step: int = 250) -> dict:
+    """The panel as a sample of `synthetic_sample`'s form: every haplotype
+    cut into reads of `read_length` bases every `step` bases, aligned
+    (M, I and D) to the reference, mapq 60, base quality 40, unpaired."""
+    rows = []
+    for h, carried in enumerate(panel["haplotypes"]):
+        for ref_id, (name, length) in enumerate(panel["contigs"]):
+            ref = panel["reference"][name]
+            by_pos = {v["pos"]: dict(pos=v["pos"], alleles=[allele],
+                                     haps=(0,))
+                      for v, allele in zip(panel["planted"][name],
+                                           carried[name]) if allele}
+            for start in range(0, length - step, step):
+                seq, cigar = _read_from(ref, by_pos, start, 0, read_length)
+                rows.append(dict(
+                    name=f"hap{h:02d}_{name}_{start}", flag=0,
+                    ref_id=ref_id, pos=start, mapq=60,
+                    seq=np.array(seq, np.uint8),
+                    qual=np.full(len(seq), 40, np.uint8), cigar=cigar,
+                    mate_ref_id=-1, mate_pos=-1, tlen=0, aux=b""))
+    return dict(contigs=panel["contigs"], reference=panel["reference"],
+                variants={}, reads=_pack_reads(rows), sample_name="panel")
+
+
+def _revcomp(seq: str) -> str:
+    return seq.translate(str.maketrans("ACGTN", "TGCAN"))[::-1]
+
+
+def panel_graph(panel: dict):
+    """The panel as a graph: (node_sequences {id: bases}, paths [[GBWT
+    node ids]], path_names [(sample, contig, phase, fragment)],
+    sample_names, contig_names). Per contig: the reference path of
+    `reference_sample`, then one path per haplotype; the reference
+    between sites is one node per stretch, each site a bubble of its
+    reference bases and one node per allele (written as VCF alleles).
+    Every fourth allele node and every seventh stretch are stored
+    reverse-complemented and walked in reverse (orientation bit 1)."""
+    nodes: Dict[int, str] = {}
+
+    def node(seq: str, reverse: bool) -> int:
+        nid = len(nodes) + 1
+        nodes[nid] = _revcomp(seq) if reverse else seq
+        return (nid << 1) | int(reverse)
+
+    n_haps = len(panel["haplotypes"])
+    paths, names = [], []
+    for contig, (name, length) in enumerate(panel["contigs"]):
+        ref = panel["reference"][name]
+        ref_path: List[int] = []
+        hap_paths: List[List[int]] = [[] for _ in range(n_haps)]
+        prev = 0
+        for k, v in enumerate(panel["planted"][name]):
+            ref_bases, alts = _vcf_alleles(ref, v)
+            if v["pos"] > prev:
+                stretch = node(ref[prev:v["pos"]].tobytes().decode(),
+                               len(nodes) % 7 == 6)
+                ref_path.append(stretch)
+                for p in hap_paths:
+                    p.append(stretch)
+            ref_node = node(ref_bases, False)
+            alt_nodes = [node(a, (k + i) % 4 == 3) for i, a in
+                         enumerate(alts)]
+            ref_path.append(ref_node)
+            for h, p in enumerate(hap_paths):
+                allele = panel["haplotypes"][h][name][k]
+                p.append(ref_node if allele is None else
+                         alt_nodes[v["alleles"].index(allele)])
+            prev = v["pos"] + len(ref_bases)
+        tail = node(ref[prev:length].tobytes().decode(), False)
+        ref_path.append(tail)
+        paths.append(ref_path)
+        names.append((0, contig, 0, 0))
+        for h, p in enumerate(hap_paths):
+            paths.append(p + [tail])
+            names.append((1 + h // 2, contig, 1 + h % 2, 0))
+    samples = [panel["reference_sample"]] + [
+        f"panel{i}" for i in range((n_haps + 1) // 2)]
+    contigs = [name for name, _ in panel["contigs"]]
+    return nodes, paths, names, samples, contigs
+
+
+def write_panel_gbz(panel: dict, path: str, gbz_module) -> str:
+    """The panel's graph (`panel_graph`) written as a GBZ at `path` by one
+    package's `io.gbz` module."""
+    nodes, paths, names, samples, contigs = panel_graph(panel)
+    gbz_module.write_gbz(path, nodes, paths, gbz_module.GbwtMetadata(
+        sample_names=samples, contig_names=contigs,
+        path_names=[gbz_module.PathName(*n) for n in names]))
+    return path
 
 
 # -- keras model stand-in ----------------------------------------------------

@@ -18,10 +18,10 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "device",
     "calling.call_variants", "calling.cvo_writer", "calling.plan_predictor",
     "core.cigar", "core.genomics_math", "core.protowire", "core.ranges",
-    "core.sharded_files", "core.types",
+    "core.sequence_utils", "core.sharded_files", "core.types",
     "io.bam", "io.bam_writer", "io.bgzf", "io.cram", "io.examples",
     "io.fasta",
-    "io.flax_msgpack", "io.methylation", "io.tabix", "io.tfrecord",
+    "io.flax_msgpack", "io.gbz", "io.methylation", "io.tabix", "io.tfrecord",
     "io.vcf",
     "labeler.combined_labeler", "labeler.compare_labelers",
     "labeler.customized_classes_labeler", "labeler.haplotype_labeler",
@@ -30,6 +30,7 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "make_examples.allele_counter", "make_examples.allele_frequency",
     "make_examples.alt_aligned",
     "make_examples.core", "make_examples.examples_builder",
+    "make_examples.multisample",
     "make_examples.normalize",
     "make_examples.pileup", "make_examples.pileup_device",
     "make_examples.presets", "make_examples.shuffle",
@@ -45,7 +46,10 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "realign.realigner", "realign.ssw", "realign.window_selector",
     "scripts.call_variants", "scripts.export_model",
     "scripts.import_keras_model", "scripts.make_examples",
-    "scripts.postprocess_variants", "scripts.run_deepvariant",
+    "scripts.multisample_make_examples",
+    "scripts.postprocess_variants", "scripts.run_deepsomatic",
+    "scripts.run_deeptrio", "scripts.run_deepvariant",
+    "scripts.run_pangenome_aware_deepvariant",
     "scripts.run_oracle_inference", "scripts.train",
     "scripts.train_small_model",
     "small_model.features", "small_model.model", "small_model.train",
