@@ -256,7 +256,35 @@ Phases:
      300x221x7 examples; the bfloat16 InceptionV3(7) is timed at batch
      512 at 140, 200 and 300 rows, back to back and call by call, with
      the peak of allocated memory.
- 17. One JSON line per the kernels, the card's name and power limit, and
+ 17. Simulate, train, call, score: the port's read simulators fit their
+     error models to seeded templates (a 30x short-read sample over 60
+     kb, a long-read sample over 16 kb, written with the port's writers)
+     and write five corpora with their truth VCFs and BEDs: a 20 kb
+     training corpus, a 10 kb held-out corpus (another window and seed),
+     and 10 kb each of long reads, a trio and a tumour/normal pair,
+     printing variants, reads and seconds. (B) run_oracle_inference on the
+     held-out corpus, scored by the port's vcf_eval against its truth
+     inside its BED: F1 at least SIM_ORACLE_MIN_F1. (C) make_examples
+     --mode training (WGS preset, SIM_SHARDS spawned shards) on the
+     training corpus, tools/shuffle_tfrecords to 2 shards and a dataset
+     config, the train CLI (wgs_test, full-width InceptionV3(7), batch
+     SIM_TRAIN_BATCH, one epoch) on the card: ms per step. (D)
+     run_deepvariant --stream (device encoder) with C's checkpoint on the
+     held-out corpus: the plan form launched at least once; its CVOs
+     through the postprocess CLI with --vcf_stats_report (the VCF equal
+     to stage 3 in memory and to the stream's records, the stats counting
+     them), scored by vcf_eval (no threshold: a few steps from random
+     weights learn little); the plan form on the held-out corpus's own
+     plans bit-exact against its plain version, timed. (E) the long-read
+     corpus through run_deepvariant --model_type PACBIO --stream (the
+     plan form launched at least once, bit-exact on its plans), the trio
+     through run_deeptrio and the pair through run_deepsomatic (seeded
+     checkpoints), each scored against its own truth (the child's, the
+     somatic truth); the two drivers run one make_examples process with
+     the realigner, so they call the first SIM_DRIVER_SPAN bases of
+     their window and are scored there. Prints the F1s and the stages'
+     seconds.
+ 18. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
@@ -272,7 +300,8 @@ nothing: it must count 0), in phase 15 around route B's `--stream`
 run, and in phase 16 around the painting of the three DeepTrio targets'
 planes (the multi-sample path paints on the host, as in the JAX
 package: this is the smoke's check of the plan form on trio planes, not
-a path of the package); the
+a path of the package), and in phase 17 around the held-out and the
+long-read `--stream` runs (their sum is the entry's launches); the
 comparisons of phase 2 and of the checks after the paths are not
 counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
@@ -286,6 +315,7 @@ import dataclasses
 import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -447,6 +477,36 @@ MULTISAMPLE_CONTIGS = (("chr1", 10_000),)
 MULTISAMPLE_SPACING = 400
 MULTISAMPLE_CHANNELS = 7
 F32_CARD_CPU_ATOL = 1e-4       # float32 CVOs, the card (TF32 off) vs the CPU
+
+# Phase 17: the templates the simulators fit their error models to (a
+# 30x short-read sample and a long-read sample, seeded), and the corpora
+# simulated from them: name -> (simulator, config fields).
+SIM_CONTIG = "chr20"
+SIM_TEMPLATE_LENGTH = 60_000
+SIM_LONG_TEMPLATE_LENGTH = 16_000
+SIM_CORPORA = {
+    "train": ("short", dict(seed=1, windows=[(5_000, 25_000)])),
+    "heldout": ("short", dict(seed=2, windows=[(35_000, 45_000)])),
+    "long": ("long", dict(seed=3, windows=[(2_000, 12_000)])),
+    # De novo and somatic rates raised so that 10 kb hold a few of each;
+    # depths lowered for the drivers' host time (below).
+    "trio": ("trio", dict(seed=4, windows=[(5_000, 15_000)],
+                          de_novo_snv_rate=1 / 2000, coverage_child=20.0,
+                          coverage_parent=20.0)),
+    "pair": ("somatic", dict(seed=5, windows=[(45_000, 55_000)],
+                             somatic_snv_rate=1 / 1000,
+                             somatic_indel_rate=1 / 5000,
+                             coverage_tumor=40.0, coverage_normal=20.0)),
+}
+# The trio and pair drivers run one make_examples process each, with the
+# realigner (no flag turns it off), whose host time grows with the
+# simulated error process: they call, and are scored over, the first
+# SIM_DRIVER_SPAN bases of their corpus's window.
+SIM_DRIVER_SPAN = {"trio": 5_000, "pair": 3_000}
+SIM_ORACLE_MIN_F1 = 0.9        # the oracle's F1 on the held-out corpus
+SIM_SHARDS = 4                 # make_examples shards (processes) per run
+SIM_PLAN_SPAN = 1_500          # the held-out plans held against the plain
+SIM_TRAIN_BATCH = 32
 
 
 def nvidia_smi() -> str:
@@ -4470,6 +4530,342 @@ def phase_multisample(tmp: str, device, card: str):
     return numbers, entry
 
 
+# -- phase 17: simulate, train, call, score -----------------------------------
+
+def simulate_corpora(directory: str, tag: str) -> dict:
+    """The seeded templates, and every corpus of SIM_CORPORA simulated
+    from them by the port's simulators. Returns {name: the simulator's
+    result, with "ref" the FASTA it was simulated on}."""
+    from deepvariant_tpu_torch.testing import synthetic
+    from deepvariant_tpu_torch.training import simulate as sim
+    from deepvariant_tpu_torch.training import simulate_family as family
+    from deepvariant_tpu_torch.training import simulate_longread as longread
+
+    short = write_sample_files(synthetic.synthetic_sample(
+        SEED + 17, ((SIM_CONTIG, SIM_TEMPLATE_LENGTH),)),
+        os.path.join(directory, "template"), tag + " template")
+    long = write_sample_files(synthetic.synthetic_longread_sample(
+        SEED + 18, ((SIM_CONTIG, SIM_LONG_TEMPLATE_LENGTH),)),
+        os.path.join(directory, "long-template"), tag + " long template")
+    simulators = {
+        "short": (sim.SimConfig, sim.simulate_corpus, short,
+                  SIM_TEMPLATE_LENGTH),
+        "long": (longread.LongReadSimConfig,
+                 longread.simulate_corpus_longread, long,
+                 SIM_LONG_TEMPLATE_LENGTH),
+        "trio": (family.TrioSimConfig, family.simulate_trio_corpus, short,
+                 SIM_TEMPLATE_LENGTH),
+        "somatic": (family.SomaticSimConfig, family.simulate_somatic_corpus,
+                    short, SIM_TEMPLATE_LENGTH),
+    }
+    corpora = {}
+    for name, (kind, fields) in SIM_CORPORA.items():
+        config_cls, driver, template, length = simulators[kind]
+        cfg = config_cls(ref_path=template["ref"], contig=SIM_CONTIG,
+                         template_bam=template["reads"],
+                         template_region=(SIM_CONTIG, 0, length), **fields)
+        start = time.time()
+        out = driver(cfg, os.path.join(directory, name))
+        seconds = time.time() - start
+        counts = {k: v for k, v in out.items() if k.startswith("n_")}
+        print(f"[{tag}] simulated {name} ({kind}, seed {fields['seed']}, "
+              f"{SIM_CONTIG}:{fields['windows'][0][0]}-"
+              f"{fields['windows'][0][1]}): {counts} in {seconds:.2f} s; "
+              f"host CPUs {os.cpu_count()}")
+        corpora[name] = dict(out, ref=template["ref"], seconds=seconds,
+                             counts=counts)
+    return corpora
+
+
+def score(truth: str, vcf: str, bed: str, tag: str, what: str,
+          region: str = None) -> dict:
+    """The port's vcf_eval of `vcf` against `truth` inside `bed` (and
+    `region`): printed, and returned as {tp, fn, fp, f1} of all
+    variants."""
+    from deepvariant_tpu_torch.tools import vcf_eval
+
+    result = vcf_eval.evaluate(truth, vcf, confident_bed=bed, region=region)
+    m = {k: result["all"][k] for k in ("tp", "fn", "fp", "f1")}
+    print(f"[{tag}] vcf_eval of {what} against its truth: TP {m['tp']}, "
+          f"FN {m['fn']}, FP {m['fp']}, F1 {m['f1']:.4f} (SNP "
+          f"{result['snp']['f1']:.4f}, indel {result['indel']['f1']:.4f})")
+    return m
+
+
+def plans_of(options, tag: str, card: str) -> list:
+    """The plans of the runner's PlannedExamples of `options`, made in
+    this process."""
+    kept, _ = run_runner(options, os.path.dirname(options.reads_filename),
+                         tag, card, least_plans=1)
+    return [p.plan for p in kept]
+
+
+def phase_simulated(tmp: str, device, card: str):
+    """Phase 17: simulate, label, train, call and score on the card.
+    Returns (numbers, the kernels-line entry of the plan form on the
+    simulated plans, with the launches of the held-out and long-read
+    streams)."""
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.core.sharded_files import glob_sharded_inputs
+    from deepvariant_tpu_torch.io.tfrecord import TFRecordWriter
+    from deepvariant_tpu_torch.make_examples.core import MakeExamplesOptions
+    from deepvariant_tpu_torch.make_examples.presets import apply_model_preset
+    from deepvariant_tpu_torch.models.checkpoint import (
+        load_variables_for_examples,
+        save_variables,
+    )
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.scripts import postprocess_variants as pp_cli
+    from deepvariant_tpu_torch.scripts import run_deepsomatic
+    from deepvariant_tpu_torch.scripts import run_deepvariant
+    from deepvariant_tpu_torch.scripts import run_deeptrio
+    from deepvariant_tpu_torch.scripts import run_oracle_inference
+    from deepvariant_tpu_torch.scripts import train as train_cli
+    from deepvariant_tpu_torch.tools import shuffle_tfrecords
+
+    phase_start = time.time()
+    tag = "sim"
+    directory = os.path.join(tmp, "simulated")
+    numbers = {}
+
+    # -- A: simulate --
+    corpora = simulate_corpora(directory, tag + " A")
+    numbers["simulate"] = {name: dict(c["counts"], seconds=c["seconds"])
+                           for name, c in corpora.items()}
+    held = corpora["heldout"]
+    ref = held["ref"]
+
+    # -- B: the oracle's ceiling on the held-out corpus --
+    btag = tag + " B"
+    oracle_vcf = os.path.join(directory, "oracle.vcf.gz")
+    start = time.time()
+    quiet(run_oracle_inference.main, [
+        "--model_type", "WGS", "--ref", ref, "--reads", held["bam"],
+        "--output_vcf", oracle_vcf, "--truth_variants", held["truth_vcf"],
+        "--confident_regions", held["confident_bed"], "--num_shards",
+        str(SIM_SHARDS), "--intermediate_results_dir",
+        os.path.join(directory, "oracle")], btag)
+    numbers["oracle_s"] = time.time() - start
+    numbers["oracle"] = score(
+        held["truth_vcf"], oracle_vcf, held["confident_bed"], btag,
+        f"run_oracle_inference ({numbers['oracle_s']:.1f} s)")
+    if numbers["oracle"]["f1"] < SIM_ORACLE_MIN_F1:
+        raise AssertionError(
+            f"{btag}: the oracle's F1 {numbers['oracle']['f1']:.4f} is below "
+            f"{SIM_ORACLE_MIN_F1}: the simulator, the labeler or vcf_eval is "
+            "wrong")
+
+    # -- C: label the training corpus, shuffle, train on the card --
+    ctag = tag + " C"
+    train = corpora["train"]
+    labeled = os.path.join(directory, "labeled",
+                           f"train@{SIM_SHARDS}.tfrecord.gz")
+    os.makedirs(os.path.dirname(labeled))
+    me_argv = ["--mode", "training", "--model_preset", "WGS", "--ref", ref,
+               "--reads", train["bam"], "--examples", labeled,
+               "--truth_variants", train["truth_vcf"],
+               "--confident_regions", train["confident_bed"],
+               "--num_shards", str(SIM_SHARDS)]
+    start = time.time()
+    # The shards in spawned processes, as run_deepvariant runs them.
+    with multiprocessing.get_context("spawn").Pool(SIM_SHARDS) as pool:
+        for rc, text in pool.map(run_deepvariant._run_make_examples_shard,
+                                 [(me_argv, task)
+                                  for task in range(SIM_SHARDS)]):
+            for line in text.strip().splitlines():
+                print(f"[{ctag}] {line}")
+            if rc != 0:
+                raise AssertionError(f"{ctag}: a make_examples shard "
+                                     f"exited {rc}")
+    numbers["label_s"] = time.time() - start
+    shuffled = os.path.join(directory, "shuffled", "train@2.tfrecord.gz")
+    dataset = os.path.join(directory, "shuffled", "train.pbtxt")
+    os.makedirs(os.path.dirname(shuffled))
+    start = time.time()
+    quiet(shuffle_tfrecords.main, [
+        "--input_pattern_list", labeled, "--output_pattern", shuffled,
+        "--output_dataset_config_pbtxt", dataset,
+        "--output_dataset_name", "simulated"], ctag)
+    numbers["shuffle_s"] = time.time() - start
+    # shuffle_tfrecords writes no example_info.json: the trainer reads
+    # the shape and channels of the labeled examples beside the shards.
+    shutil.copy(glob_sharded_inputs(labeled)[0] + ".example_info.json",
+                glob_sharded_inputs(shuffled)[0] + ".example_info.json")
+    n_examples = len(example_records(shuffled))
+    exp = os.path.join(directory, "train")
+    buf = io.StringIO()
+    start = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main([
+            "--config", "wgs_test", "--train_dataset_config", dataset,
+            "--tune_dataset_config", dataset, "--experiment_dir", exp,
+            "--batch_size", str(SIM_TRAIN_BATCH), "--num_epochs", "1",
+            "--device", device.type])
+    train_s = time.time() - start
+    epochs = [json.loads(line.split(": ", 1)[1])
+              for line in buf.getvalue().splitlines()
+              if line.startswith("epoch ")]
+    if rc != 0 or len(epochs) != 1 or \
+            not math.isfinite(epochs[0]["train/loss"]):
+        raise AssertionError(f"{ctag}: the train CLI exited {rc} with "
+                             f"{epochs}")
+    steps = min(n_examples // SIM_TRAIN_BATCH, 50)
+    step_ms = SIM_TRAIN_BATCH * 1000.0 / epochs[0]["train/examples_per_sec"]
+    numbers.update(labeled_examples=n_examples, train_s=train_s,
+                   train_steps=steps, train_ms_per_step=step_ms,
+                   train_loss=epochs[0]["train/loss"])
+    print(f"[{ctag}] make_examples --mode training {numbers['label_s']:.1f} s"
+          f" ({n_examples} labeled examples), shuffle_tfrecords "
+          f"{numbers['shuffle_s']:.2f} s, train CLI (wgs_test, full-width "
+          f"InceptionV3(7), batch {SIM_TRAIN_BATCH}, {steps} steps) "
+          f"{train_s:.1f} s: {step_ms:.1f} ms per step over the epoch "
+          f"(its first step included), loss {epochs[0]['train/loss']:.4f}; "
+          f"{card}")
+    checkpoint = os.path.join(exp, "checkpoints")
+
+    # -- D: call the held-out corpus with C's checkpoint, and score --
+    dtag = tag + " D"
+    out = os.path.join(directory, "call")
+    seen, restore = record_stream_cvos()
+    pp.paint_pileup.launches = 0
+    try:
+        text, stream_s, _ = run_deepvariant_cli([
+            "--ref", ref, "--reads", held["bam"], "--output_vcf",
+            os.path.join(out, "stream.vcf.gz"), "--checkpoint", checkpoint,
+            "--batch_size", str(BATCH), "--num_shards", str(SIM_SHARDS),
+            "--intermediate_results_dir", os.path.join(out, "work"),
+            "--stream", "--device", device.type], dtag, card)
+    finally:
+        restore()
+    launches = pp.paint_pileup.launches
+    (cvos, _), = seen
+    if "encoder=device" not in text or launches < 1:
+        raise AssertionError(f"{dtag}: the stream launched the plan form "
+                             f"{launches} times ({text.strip()[-200:]})")
+    # The CVOs through the postprocess CLI with the stats report.
+    cvo_path = os.path.join(out, "cvo.tfrecord.gz")
+    with TFRecordWriter(cvo_path) as writer:
+        for cvo in cvos:
+            writer.write(cvo.encode())
+    vcf = os.path.join(out, "calls.vcf.gz")
+    start = time.time()
+    quiet(pp_cli.main, ["--ref", ref, "--infile", cvo_path, "--outfile", vcf,
+                        "--vcf_stats_report"], dtag)
+    postprocess_s = time.time() - start
+    check_vcf(vcf, cvos, ref, pp_cli._sample_name_from_cvos(cvo_path), dtag,
+              card)
+    if vcf_records(vcf) != vcf_records(os.path.join(out, "stream.vcf.gz")):
+        raise AssertionError(f"{dtag}: the CLI's VCF differs from the "
+                             "stream's")
+    with open(os.path.join(out, "calls.stats.json")) as f:
+        stats = json.load(f)
+    report = os.path.getsize(os.path.join(out, "calls.visual_report.html"))
+    if stats["record_count"] != len(vcf_records(vcf)):
+        raise AssertionError(f"{dtag}: the stats count "
+                             f"{stats['record_count']} records")
+    print(f"[{dtag}] postprocess_variants --vcf_stats_report "
+          f"{postprocess_s:.2f} s: {stats['record_count']} records, a "
+          f"{report}-byte HTML report")
+    numbers["called"] = score(held["truth_vcf"], vcf, held["confident_bed"],
+                              dtag, f"the trained model ({steps} steps)")
+    numbers.update(call_stream_s=stream_s, call_cvos=len(cvos),
+                   call_launches=launches, postprocess_report_s=postprocess_s)
+    # The plan form on the held-out corpus's plans, bit for bit: those of
+    # the window's first SIM_PLAN_SPAN bases, from the runner in this
+    # process with the stream's options.
+    lo = SIM_CORPORA["heldout"][1]["windows"][0][0]
+    options = apply_model_preset(MakeExamplesOptions(
+        reads_filename=held["bam"], ref_filename=ref,
+        regions=[f"{SIM_CONTIG}:{lo}-{lo + SIM_PLAN_SPAN}"]), "WGS")
+    plans = plans_of(options, dtag, card)
+    model, _ = load_variables_for_examples(checkpoint, labeled, device=device)
+    predictor = PlanPredictor(model, options.pileup_options,
+                              batch_size=BATCH, device=device)
+    entry = from_files_entry("pileup_paint_plan_simulated", predictor, plans,
+                             dtag, card)
+    del predictor, model
+
+    # -- E: the long-read corpus, the trio and the pair through their
+    # drivers --
+    etag = tag + " E"
+    long = corpora["long"]
+    long_ckpt = os.path.join(directory, "ckpt-long", "model.msgpack")
+    long_model = seeded_model(LONGREAD_SHAPE[2])
+    save_variables(long_ckpt, long_model)
+    out = os.path.join(directory, "long-call")
+    pp.paint_pileup.launches = 0
+    text, long_s, _ = run_deepvariant_cli([
+        "--model_type", "PACBIO", "--ref", long["ref"], "--reads",
+        long["bam"], "--output_vcf", os.path.join(out, "long.vcf.gz"),
+        "--checkpoint", long_ckpt, "--batch_size", str(BATCH),
+        "--num_shards", str(SIM_SHARDS), "--intermediate_results_dir",
+        os.path.join(out, "work"), "--stream", "--device", device.type],
+        etag + " long", card)
+    long_launches = pp.paint_pileup.launches
+    if "encoder=device" not in text or long_launches < 1:
+        raise AssertionError(f"{etag}: the long-read stream launched the plan "
+                             f"form {long_launches} times")
+    lo = SIM_CORPORA["long"][1]["windows"][0][0]
+    options = apply_model_preset(MakeExamplesOptions(
+        reads_filename=long["bam"], ref_filename=long["ref"],
+        regions=[f"{SIM_CONTIG}:{lo}-{lo + SIM_PLAN_SPAN}"]), "PACBIO")
+    long_plans = plans_of(options, etag + " long", card)
+    from_files_entry("pileup_paint_plan_simulated_longread", PlanPredictor(
+        long_model, options.pileup_options, batch_size=BATCH, device=device),
+        long_plans, etag + " long", card)
+    entry["launches"] = launches + long_launches
+    numbers["long"] = dict(score(long["truth_vcf"], os.path.join(
+        out, "long.vcf.gz"), long["confident_bed"], etag + " long",
+        "the PACBIO stream (seeded weights)"), seconds=long_s,
+        launches=long_launches)
+
+    checkpoint7 = os.path.join(directory, "ckpt-7", "model.msgpack")
+    save_variables(checkpoint7, seeded_model(MULTISAMPLE_CHANNELS))
+    regions = {}
+    for name, span in SIM_DRIVER_SPAN.items():
+        lo = SIM_CORPORA[name][1]["windows"][0][0]
+        regions[name] = f"{SIM_CONTIG}:{lo}-{lo + span}"
+    trio = corpora["trio"]
+    out = os.path.join(directory, "deeptrio")
+    tally = {}
+    seconds = run_pipeline(run_deeptrio.main, [
+        "--ref", trio["ref"], "--reads_child", trio["bam_child"],
+        "--reads_parent1", trio["bam_parent1"], "--reads_parent2",
+        trio["bam_parent2"],
+        "--output_vcf_child", os.path.join(out, "child.vcf.gz"),
+        "--checkpoint_child", checkpoint7, "--checkpoint_parent",
+        checkpoint7, "--batch_size", str(BATCH), "--device", device.type,
+        "--regions", regions["trio"],
+        "--intermediate_results_dir", os.path.join(out, "work")],
+        etag + " deeptrio", tally, card)
+    numbers["trio"] = dict(score(
+        trio["truth_child"], os.path.join(out, "child.vcf.gz"),
+        trio["confident_bed"], etag + " deeptrio",
+        f"the child's VCF over {regions['trio']} (seeded weights)",
+        regions["trio"]), seconds=seconds, stages=tally)
+    pair = corpora["pair"]
+    out = os.path.join(directory, "deepsomatic")
+    tally = {}
+    seconds = run_pipeline(run_deepsomatic.main, [
+        "--ref", pair["ref"], "--reads_tumor", pair["bam_tumor"],
+        "--reads_normal", pair["bam_normal"],
+        "--output_vcf", os.path.join(out, "somatic.vcf.gz"),
+        "--checkpoint", checkpoint7, "--batch_size", str(BATCH),
+        "--device", device.type, "--regions", regions["pair"],
+        "--intermediate_results_dir", os.path.join(out, "work")],
+        etag + " deepsomatic", tally, card)
+    numbers["somatic"] = dict(score(
+        pair["truth_somatic"], os.path.join(out, "somatic.vcf.gz"),
+        pair["confident_bed"], etag + " deepsomatic",
+        f"the somatic VCF over {regions['pair']} (seeded weights)",
+        regions["pair"]), seconds=seconds, stages=tally)
+    numbers["phase17_s"] = time.time() - phase_start
+    print(f"[{tag}] phase 17 {numbers['phase17_s']:.1f} s; the plan form "
+          f"launched {launches} + {long_launches} times on the held-out and "
+          f"long-read streams; {card}")
+    return numbers, entry
+
+
 def main() -> int:
     import torch
 
@@ -4578,6 +4974,13 @@ def main() -> int:
             tmp, device, card)
         summary["multisample"] = multisample_numbers
         kernels.append(multisample_kernel)
+        # Simulate corpora, the oracle's ceiling, label, shuffle and
+        # train on one, call and score another, and the long-read, trio
+        # and tumour/normal corpora through their drivers.
+        simulated_numbers, simulated_kernel = phase_simulated(
+            tmp, device, card)
+        summary["simulated"] = simulated_numbers
+        kernels.append(simulated_kernel)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)

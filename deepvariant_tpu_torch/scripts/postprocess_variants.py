@@ -4,8 +4,8 @@ The port's copy of `deepvariant_tpu.scripts.postprocess_variants`, with
 the same flags (the reference postprocess_variants.py main, :2232).
 Stage 3 runs on the host: this CLI needs no card. Each output ending in
 `.gz` (the VCF and the gVCF) is BGZF and gets a tabix index.
-`--vcf_stats_report`, whose code is not ported, raises
-NotImplementedError naming its ROADMAP.md item (Queue 1 item 6, tools/).
+`--vcf_stats_report` writes `<outfile base>.stats.json` and
+`.visual_report.html` beside the VCF with the port's `tools/vcf_stats`.
 
     python -m deepvariant_tpu_torch.scripts.postprocess_variants \
         --ref ref.fa --infile cvo.tfrecord.gz --outfile out.vcf.gz \
@@ -26,6 +26,7 @@ from deepvariant_tpu_torch.postprocess.pipeline import (
     postprocess_variants,
     postprocess_variants_parallel,
 )
+from deepvariant_tpu_torch.tools import vcf_stats
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,10 +86,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.vcf_stats_report:
-        raise NotImplementedError(
-            "--vcf_stats_report (tools/vcf_stats) is not ported yet; "
-            "ROADMAP.md Queue 1 item 6 (tools/)")
     ref = FastaReader(args.ref)
     haploid = None
     if args.haploid_contigs:
@@ -166,6 +163,14 @@ def main(argv=None) -> int:
     for out in (args.outfile, args.gvcf_outfile):
         if out and out.endswith(".gz"):
             build_index(out, use_csi=args.use_csi)
+    if args.vcf_stats_report:
+        base = args.outfile
+        for suffix in (".gz", ".vcf"):
+            if base.endswith(suffix):
+                base = base[: -len(suffix)]
+        vcf_stats.main([
+            "--input_vcf", args.outfile, "--outfile_base", base,
+        ])
     print(
         f"postprocess_variants done: {stats['vcf_records']} VCF records"
         + (f", {stats['gvcf_records']} gVCF records"

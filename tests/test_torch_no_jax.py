@@ -17,11 +17,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepvariant_tpu")
 MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "device",
     "calling.call_variants", "calling.cvo_writer", "calling.plan_predictor",
-    "core.cigar", "core.genomics_math", "core.protowire", "core.ranges",
+    "core.cigar", "core.distribution", "core.genomics_math",
+    "core.protowire", "core.ranges",
     "core.sequence_utils", "core.sharded_files", "core.types",
     "io.bam", "io.bam_writer", "io.bgzf", "io.cram", "io.examples",
     "io.fasta",
-    "io.flax_msgpack", "io.gbz", "io.methylation", "io.tabix", "io.tfrecord",
+    "io.flax_msgpack", "io.genomics_io", "io.gbz", "io.methylation", "io.tabix", "io.tfrecord",
     "io.vcf",
     "labeler.combined_labeler", "labeler.compare_labelers",
     "labeler.customized_classes_labeler", "labeler.haplotype_labeler",
@@ -54,7 +55,13 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "scripts.train_small_model",
     "small_model.features", "small_model.model", "small_model.train",
     "testing.cram_writer", "testing.synthetic",
+    "tools.dashboard", "tools.fn_audit", "tools.preprocess_truth",
+    "tools.print_f1", "tools.runtime_by_region_vis", "tools.show_examples",
+    "tools.shuffle_tfrecords", "tools.vcf_eval", "tools.vcf_stats",
+    "tools.vis",
     "training.config", "training.data", "training.metrics",
+    "training.simulate", "training.simulate_family",
+    "training.simulate_longread",
     "training.train", "training.train_resident",
     "utils.resources",
 ))
@@ -215,6 +222,50 @@ def test_cram_training_run_without_jax(tmp_path):
             f"raise ImportError('the port must not import {name}')\n")
     env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
     out = subprocess.run([sys.executable, "-c", _TRAINING_SCRIPT],
+                         cwd=str(tmp_path), env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "clean" in out.stdout
+
+
+_SIMULATE_SCRIPT = r"""
+import os, sys, tempfile
+import numpy as np
+from deepvariant_tpu_torch.core import types
+from deepvariant_tpu_torch.io import bam, bam_writer
+from deepvariant_tpu_torch.testing import synthetic
+from deepvariant_tpu_torch.tools import show_examples, vcf_eval, vis
+from deepvariant_tpu_torch.training import simulate
+d = tempfile.mkdtemp()
+paths = synthetic.write_inputs(synthetic.synthetic_sample(
+    3, (("chr1", 8000),)), d, types, bam, bam_writer)
+out = simulate.simulate_corpus(simulate.SimConfig(
+    paths["ref"], "chr1", [(1000, 7000)], seed=1,
+    template_bam=paths["reads"], template_region=("chr1", 0, 8000)),
+    os.path.join(d, "sim"))
+metrics = vcf_eval.evaluate(out["truth_vcf"], out["truth_vcf"],
+                            out["confident_bed"])
+assert out["n_variants"] > 0 and metrics["all"]["f1"] == 1.0, metrics
+vis.save_to_png(np.arange(12.0).reshape(3, 4), os.path.join(d, "a.png"))
+show_examples.save_example_png(np.zeros((5, 4, 3), np.uint8),
+                               os.path.join(d, "b.png"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not bad, bad
+print("clean", out["n_variants"])
+""" % (FORBIDDEN + ("PIL",),)
+
+
+def test_simulate_and_score_without_jax(tmp_path):
+    """A corpus simulated from a seeded template and scored by vcf_eval,
+    and PNGs without a header written, with the forbidden packages and
+    Pillow made unimportable, as on a machine without Pillow."""
+    for name in FORBIDDEN + ("PIL",):
+        pkg = tmp_path / name
+        pkg.mkdir()
+        (pkg / "__init__.py").write_text(
+            f"raise ImportError('the port must not import {name}')\n")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
+    out = subprocess.run([sys.executable, "-c", _SIMULATE_SCRIPT],
                          cwd=str(tmp_path), env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]

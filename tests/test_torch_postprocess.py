@@ -18,6 +18,7 @@ held on the same groups one by one.
 
 import copy
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -451,10 +452,22 @@ def test_cli_parallel_and_sample_name_match_jax(aux_files, tmp_path, capsys):
 
 def test_unported_options_raise(aux_files, tmp_path):
     data = aux_files
-    base = ["--ref", data["ref"], "--infile", data["short"],
-            "--outfile", str(tmp_path / "x.vcf")]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcli.main(base + ["--vcf_stats_report"])
+    # --vcf_stats_report is ported: the stats JSON and HTML beside the
+    # VCF, the JAX CLI's bytes. The page's title names the VCF, so the
+    # two packages write to the same path in turn.
+    reports = {}
+    directory = tmp_path / "stats"
+    for package, cli in ((JAX, jcli), (PORT, tcli)):
+        directory.mkdir()
+        assert cli.main(["--ref", data["ref"], "--infile", data["short"],
+                         "--outfile", str(directory / "x.vcf.gz"),
+                         "--vcf_stats_report"]) == 0
+        reports[package] = {name: (directory / name).read_bytes()
+                            for name in sorted(os.listdir(directory))}
+        shutil.rmtree(directory)
+    assert reports[PORT] == reports[JAX]
+    assert sorted(reports[PORT]) == [
+        "x.stats.json", "x.vcf.gz", "x.vcf.gz.tbi", "x.visual_report.html"]
     # The gVCF merge is ported (tests/test_torch_gvcf.py): as in the JAX
     # package, one of its two inputs without the other writes the VCF
     # alone, the same bytes.

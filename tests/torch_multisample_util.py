@@ -160,29 +160,30 @@ def _grid(fn, taken=("self",)):
     return out or None
 
 
-def twin_cases(test_module):
+def twin_cases(test_module, fixtures=()):
     """(id, class name or None, function name, params) of every test of
-    `test_module` that needs no fixture, each parametrized case on its
-    own."""
+    `test_module` that needs no fixture but those named in `fixtures`,
+    each parametrized case on its own."""
+    taken = ("self",) + tuple(fixtures)
     out = []
     for name, obj in sorted(vars(test_module).items()):
         if name.startswith("test_") and inspect.isfunction(obj):
-            for k, params in enumerate(_grid(obj) or []):
+            for k, params in enumerate(_grid(obj, taken) or []):
                 out.append((f"{name}[{k}]", None, name, params))
         elif name.startswith("Test") and inspect.isclass(obj):
             for fname, fn in sorted(vars(obj).items()):
                 if fname.startswith("test_"):
-                    for k, params in enumerate(_grid(fn) or []):
+                    for k, params in enumerate(_grid(fn, taken) or []):
                         out.append((f"{name}.{fname}[{k}]", name, fname,
                                     params))
     return out
 
 
-def run_twin_case(twin, cls_name, name, params):
-    if cls_name is None:
-        getattr(twin, name)(**params)
-        return
-    obj = getattr(twin, cls_name)()
-    if hasattr(obj, "setup_method"):
-        obj.setup_method()
-    getattr(obj, name)(**params)
+def run_twin_case(twin, cls_name, name, params, **fixtures):
+    """One case of `twin_cases`, given the fixtures its function names."""
+    owner = twin if cls_name is None else getattr(twin, cls_name)()
+    if cls_name is not None and hasattr(owner, "setup_method"):
+        owner.setup_method()
+    fn = getattr(owner, name)
+    wanted = inspect.signature(fn).parameters
+    fn(**params, **{k: v for k, v in fixtures.items() if k in wanted})
