@@ -284,7 +284,32 @@ Phases:
      the realigner, so they call the first SIM_DRIVER_SPAN bases of
      their window and are scored there. Prints the F1s and the stages'
      seconds.
- 18. One JSON line per the kernels, the card's name and power limit, and
+ 18. torch.distributed on the one card. (A) NCCL at world size 1 from
+     torchrun's variables (set in the phase): `initialize_multihost`,
+     `all_gather_counts`, then MULTI_GPU_STEPS data-parallel train steps
+     of InceptionV3(7) at full width (SGD with EMA, batch 64 in 2 micro
+     batches, dropout 0, TF32 off) against the one-device step from the
+     same state and batches, in float64 weights and in float32; ms per
+     step (CUDA events) and the collectives' time. (B) two processes on
+     the card that meet over gloo (a file store), the same steps on their
+     rows of the same global batches: their states equal to each other
+     bit for bit, and held to (A)'s one-device float64 step; ms per step
+     and the seconds of the 87.1 MB gradient all-reduce and of the 376
+     batch-norm collectives a step. The limits and why: MULTI_GPU_*.
+     (C) `python -m deepvariant_tpu_torch.parallel.multihost` in two
+     processes on the card against one process, over a seeded 12 kb
+     sample in four regions: with the toy classifier the merged VCFs are
+     equal byte for byte; with a seeded float32 checkpoint
+     (`--use_model`) the CVOs have the same loci and probabilities within
+     MULTI_GPU_PROB_ATOL and the VCFs the same records. (D) the prefetch
+     iterator, `fused_encode_infer` and a Predictor with two replicas on
+     the card (two streams) against the one-device Predictor, float32.
+     The paint kernel must not be launched in (A)-(D) (the JAX
+     multi-process path paints on the host): its entry on the kernels
+     line says so (`expected_launches` 0). (E) a PlanPredictor with two
+     replicas against one (a comparison, not counted). The machine has
+     one card: no multi-card speed is measured.
+ 19. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
@@ -301,7 +326,8 @@ run, and in phase 16 around the painting of the three DeepTrio targets'
 planes (the multi-sample path paints on the host, as in the JAX
 package: this is the smoke's check of the plan form on trio planes, not
 a path of the package), and in phase 17 around the held-out and the
-long-read `--stream` runs (their sum is the entry's launches); the
+long-read `--stream` runs (their sum is the entry's launches), and
+in phase 18 around (A)-(D), which must count 0; the
 comparisons of phase 2 and of the checks after the paths are not
 counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
@@ -507,6 +533,39 @@ SIM_ORACLE_MIN_F1 = 0.9        # the oracle's F1 on the held-out corpus
 SIM_SHARDS = 4                 # make_examples shards (processes) per run
 SIM_PLAN_SPAN = 1_500          # the held-out plans held against the plain
 SIM_TRAIN_BATCH = 32
+# Phase 18, multi-GPU. The data-parallel steps: InceptionV3(7) at full
+# width, SGD with EMA, a global batch of 64 in 2 micro batches, 3 steps.
+MULTI_GPU_BATCH = 64
+MULTI_GPU_ACCUM = 2
+MULTI_GPU_STEPS = 3
+MULTI_GPU_SHAPE = SHAPE
+# A train step of this network is ill-conditioned: a relative 1e-7
+# change of batch norm's sums moves the float32 update by 2.8-3.6%
+# (measured on the CPU), and over steps the runs drift apart: a float32
+# run is 2.4% from the float64 one after one step and 78% after three
+# (on the card at full width). So each run is held after its first
+# step, and the distances after the last are printed. The data-parallel
+# runs are held to the one-device step in float64 weights: the relative
+# L2 distance of the updates (params, ema_params, the momentum trace)
+# within 1e-4, the batch-norm statistics within 1e-5 of each leaf's
+# largest value, the loss within 1e-5. The head stays float32 in any
+# weight dtype (as the JAX model's), and its rounding, amplified by the
+# float64 backward, sets that floor where the ranks' sums split the
+# batch: updates 0.5-1.5e-5 apart and statistics 1.6e-6 on the CPU at
+# 75x75, batch 8. The float32 runs are held to the one-device float64
+# run as phase 14 holds its float32 step: update distance within 0.15
+# and the loss within 1e-4.
+MULTI_GPU_F64_DISTANCE = 1e-4
+MULTI_GPU_F64_STATS_RTOL = 1e-5
+MULTI_GPU_F64_LOSS_RTOL = 1e-5
+MULTI_GPU_F32_DISTANCE = 0.15
+MULTI_GPU_LOSS_RTOL = 1e-4
+MULTI_GPU_CONTIGS = (("chr1", 8_000), ("chr2", 4_000))
+MULTI_GPU_REGIONS = ("chr1:1-4000", "chr1:4001-8000", "chr2:1-2000",
+                     "chr2:2001-4000")
+MULTI_GPU_PROB_ATOL = 1e-5     # float32 probabilities, parts against whole
+MULTI_GPU_EXAMPLES = 1100      # (D): three batches of 512, the last padded
+MULTI_GPU_RANK_TIMEOUT_S = 600
 
 
 def nvidia_smi() -> str:
@@ -4866,6 +4925,614 @@ def phase_simulated(tmp: str, device, card: str):
     return numbers, entry
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 18: multi-GPU (torch.distributed) on the one card
+# ---------------------------------------------------------------------------
+
+def multi_gpu_weights() -> dict:
+    """{params, batch_stats} of the seeded InceptionV3, float32 on the
+    CPU: the same in every process."""
+    from deepvariant_tpu_torch.training.train import model_variables
+
+    return model_variables(seeded_model(MULTI_GPU_SHAPE[2]), "cpu")
+
+
+def multi_gpu_batches() -> list:
+    rng = np.random.RandomState(SEED + 18)
+    n = MULTI_GPU_BATCH
+    return [{
+        "images": rng.randint(0, 256, (n,) + MULTI_GPU_SHAPE).astype(
+            np.uint8),
+        "labels": rng.randint(0, 3, n).astype(np.int32),
+        "sample_weights": rng.choice([0.5, 1.0, 2.0], n).astype(np.float32),
+        "variant_types": rng.randint(0, 3, n).astype(np.int32),
+    } for _ in range(MULTI_GPU_STEPS)]
+
+
+class CollectiveTally:
+    """Times every `DataParallel.all_reduce_sum` while active (CUDA events
+    on the current stream, the host clock on the CPU), by kind: the flat
+    gradient bucket, batch norm's statistics and the micro batches'
+    weight sums."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.calls = []
+
+    def kind(self, numel: int) -> str:
+        if numel > 100_000:
+            return "gradient_bucket"
+        return "batch_norm" if numel > MULTI_GPU_ACCUM else "weight_sums"
+
+    @contextlib.contextmanager
+    def active(self):
+        import torch
+
+        from deepvariant_tpu_torch.parallel.distribute import DataParallel
+
+        original = DataParallel.all_reduce_sum
+
+        def timed(dp, tensor):
+            if self.cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = original(dp, tensor)
+                end.record()
+                self.calls.append((self.kind(tensor.numel()), start, end,
+                                   tensor.numel() * tensor.element_size()))
+            else:
+                t0 = time.perf_counter()
+                out = original(dp, tensor)
+                self.calls.append((self.kind(tensor.numel()),
+                                   time.perf_counter() - t0, None,
+                                   tensor.numel() * tensor.element_size()))
+            return out
+
+        DataParallel.all_reduce_sum = timed
+        try:
+            yield self
+        finally:
+            DataParallel.all_reduce_sum = original
+
+    def summary(self) -> dict:
+        import torch
+
+        if self.cuda:
+            torch.cuda.synchronize()
+        out = {}
+        for kind, start, end, nbytes in self.calls:
+            seconds = start.elapsed_time(end) / 1e3 if self.cuda else start
+            entry = out.setdefault(kind, {"calls": 0, "s": 0.0, "bytes": 0})
+            entry["calls"] += 1
+            entry["s"] += seconds
+            entry["bytes"] = max(entry["bytes"], nbytes)
+        return out
+
+
+def data_parallel_steps(weights: dict, batches: list, dtype, device,
+                        mesh=None) -> dict:
+    """MULTI_GPU_STEPS SGD steps with EMA and accumulation of InceptionV3
+    (dropout 0) from `weights` in `dtype` (the head in float32), on each
+    global batch: data-parallel over `mesh` (this rank's rows), or the
+    one-device step without it. Returns the final state (flax layout),
+    the losses, each step's milliseconds, and the state after the first
+    step."""
+    import torch
+
+    from deepvariant_tpu_torch.models.checkpoint import state_to_flax
+    from deepvariant_tpu_torch.models.inception_v3 import InceptionV3
+    from deepvariant_tpu_torch.training import train as train_lib
+    from deepvariant_tpu_torch.training.config import TrainConfig
+
+    cfg = TrainConfig(optimizer="sgd", use_mixed_precision=False,
+                      learning_rate=0.001, use_ema=True, ema_momentum=0.9,
+                      gradient_accumulation_steps=MULTI_GPU_ACCUM)
+    model = InceptionV3(MULTI_GPU_SHAPE[2], dropout_rate=0.0, dtype=dtype)
+    tx, _ = train_lib.make_optimizer(cfg, 10)
+    variables = {c: {k: v.to(device, torch.float32 if k.startswith(
+        "classification") else dtype) for k, v in tree.items()}
+        for c, tree in weights.items()}
+    state = train_lib.init_state(model, variables, tx)
+    step = train_lib.make_train_step(model, tx, cfg, mesh)
+    losses, times, first = [], [], None
+    for batch in batches:
+        if mesh is not None:
+            batch = mesh.local_batch(batch, MULTI_GPU_ACCUM)
+        tensors = {k: torch.from_numpy(v).to(device)
+                   for k, v in batch.items()}
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, loss, _ = step(state, tensors)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            state, loss, _ = step(state, tensors)
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if first is None:
+            first = state_to_flax(state)
+    return {"state": state_to_flax(state), "first": first,
+            "losses": losses, "ms": times}
+
+
+def state_digest(tree: dict) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for key, value in sorted(flat_tree(tree).items()):
+        digest.update(repr(key).encode())
+        digest.update(np.ascontiguousarray(value).tobytes())
+    return digest.hexdigest()
+
+
+def check_float64_runs(run: dict, reference: dict, start: dict,
+                       what: str) -> dict:
+    """A float64 data-parallel run against the one-device float64 run:
+    after the first step, the update distances, the batch-norm
+    statistics and the loss within the limits of MULTI_GPU_F64_*; after
+    the last, the distances, returned and not held. Returns the
+    distances and the statistics' worst difference relative to its
+    leaf's largest value."""
+    origin = flat_tree(start)
+    out = {}
+    for when in ("first", "state"):
+        got, want = flat_tree(run[when]), flat_tree(reference[when])
+        if set(got) != set(want):
+            raise AssertionError(f"{what}: the state trees differ")
+        for group in TRAIN_CHECK_GROUPS["sgd"]:
+            d = update_distance(got, want, origin, group)
+            out[f"{when}/" + "/".join(group)] = d
+            if when == "first" and not d <= MULTI_GPU_F64_DISTANCE:
+                raise AssertionError(f"{what}: the {group} update is "
+                                     f"{d:.3g} from the one-device step's "
+                                     f"({out})")
+        worst = 0.0
+        for key in want:
+            if key[0] == "batch_stats":
+                scale = float(np.max(np.abs(want[key])))
+                worst = max(worst, float(np.max(np.abs(
+                    got[key].astype(np.float64) - want[key]))) / scale)
+        out[f"{when}/batch_stats"] = worst
+        if when == "first" and not worst <= MULTI_GPU_F64_STATS_RTOL:
+            raise AssertionError(f"{what}: batch statistics {worst:.3g} "
+                                 "apart")
+    a, b = run["losses"][0], reference["losses"][0]
+    if abs(a - b) > MULTI_GPU_F64_LOSS_RTOL * abs(b):
+        raise AssertionError(f"{what}: loss {a} against {b}")
+    return out
+
+
+def check_against_float64(run: dict, reference: dict, start: dict,
+                          what: str) -> dict:
+    """A float32 run's first loss within MULTI_GPU_LOSS_RTOL of the
+    float64 one-device run's, and its first step's update within
+    MULTI_GPU_F32_DISTANCE; returns the update distances after the first
+    step and after the last."""
+    origin = flat_tree(start)
+    out = {}
+    for when in ("first", "state"):
+        got, want = flat_tree(run[when]), flat_tree(reference[when])
+        for group in TRAIN_CHECK_GROUPS["sgd"]:
+            d = update_distance(got, want, origin, group)
+            out[f"{when}/" + "/".join(group)] = d
+            if when == "first" and not d <= MULTI_GPU_F32_DISTANCE:
+                raise AssertionError(f"{what}: the {group} update is "
+                                     f"{d:.4f} from the float64 step's "
+                                     f"({out})")
+    a, b = run["losses"][0], reference["losses"][0]
+    if abs(a - b) > MULTI_GPU_LOSS_RTOL * abs(b):
+        raise AssertionError(f"{what}: loss {a} against float64 {b}")
+    return out
+
+
+def multi_gpu_rank(rank: str, store: str, out: str, device: str) -> None:
+    """One of phase 18 (B)'s two processes: joins the gloo group at
+    `store`, runs the float64 and float32 data-parallel steps on its rows
+    of the global batches on `device`, and pickles the losses, step
+    milliseconds, collective times and a digest of the final states
+    (rank 0 also the float64 and float32 states themselves)."""
+    import pickle
+
+    import torch
+
+    from deepvariant_tpu_torch.device import full_float32_precision
+    from deepvariant_tpu_torch.parallel import distribute
+
+    rank = int(rank)
+    full_float32_precision()
+    distribute.initialize_multihost(store, 2, rank, device=device,
+                                    timeout_s=MULTI_GPU_RANK_TIMEOUT_S)
+    try:
+        mesh = distribute.data_parallel_mesh(device)
+        weights, batches = multi_gpu_weights(), multi_gpu_batches()
+        result = {"backend": mesh.backend, "device": str(mesh.device)}
+        for name, dtype in (("f64", torch.float64),
+                            ("f32", torch.float32)):
+            tally = CollectiveTally(mesh.device)
+            with tally.active():
+                run = data_parallel_steps(weights, batches, dtype,
+                                          mesh.device, mesh)
+            run["collectives"] = tally.summary()
+            run["digest"] = state_digest(run["state"])
+            if rank != 0:
+                del run["state"], run["first"]
+            result[name] = run
+    finally:
+        distribute.shutdown()
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+
+
+def run_processes(argvs, tag: str, timeout: float) -> list:
+    """Start one process per argv from the repository root, all at once;
+    returns each one's standard output. A failed or hung process fails
+    the phase (the others are killed)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(argv, cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for argv in argvs]
+    outs = []
+    try:
+        for i, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise AssertionError(f"{tag}: process {i} exited "
+                                     f"{proc.returncode}:\n{err[-4000:]}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return outs
+
+
+@contextlib.contextmanager
+def torchrun_environment(world_rank_port):
+    """The variables torchrun sets for a rank, for the block's time."""
+    rank, world, port = world_rank_port
+    names = {"RANK": rank, "WORLD_SIZE": world, "LOCAL_RANK": rank,
+             "LOCAL_WORLD_SIZE": world, "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": port}
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update({k: str(v) for k, v in names.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def multihost_pair(directory: str, options: dict, device, tag: str,
+                   extra=()) -> tuple:
+    """`python -m deepvariant_tpu_torch.parallel.multihost` in two
+    processes on `device` (gloo through a file store); returns (the two
+    results by rank, seconds)."""
+    os.makedirs(directory)
+    argvs = [[sys.executable, "-m",
+              "deepvariant_tpu_torch.parallel.multihost",
+              "--workdir", directory,
+              "--coordinator", f"file://{directory}/store",
+              "--num_processes", "2", "--process_id", str(pid),
+              "--options_json", json.dumps(options),
+              "--regions_json", json.dumps(list(MULTI_GPU_REGIONS)),
+              "--sample_name", "HG002", "--device", device.type,
+              "--timeout_s", str(MULTI_GPU_RANK_TIMEOUT_S), *extra]
+             for pid in range(2)]
+    start = time.time()
+    outs = run_processes(argvs, tag, MULTI_GPU_RANK_TIMEOUT_S)
+    seconds = time.time() - start
+    by_rank = {}
+    for out in outs:
+        result = json.loads(out.strip().splitlines()[-1])
+        by_rank[result["process_id"]] = result
+    if by_rank[0]["all_counts"] != by_rank[1]["all_counts"] or \
+            by_rank[0]["all_counts"] != [by_rank[0]["local_examples"],
+                                         by_rank[1]["local_examples"]] or \
+            min(by_rank[0]["all_counts"]) <= 0:
+        raise AssertionError(f"{tag}: gathered counts {by_rank}")
+    return by_rank, seconds
+
+
+def sorted_cvos(paths) -> list:
+    from deepvariant_tpu_torch.calling.call_variants import read_cvos
+
+    cvos = [c for p in paths for c in read_cvos(p)]
+    return sorted(cvos, key=lambda c: (c.variant.reference_name,
+                                       c.variant.start, c.variant.end,
+                                       tuple(c.alt_allele_indices)))
+
+
+def phase_multi_gpu(tmp: str, device, card: str, paint_entry: dict):
+    """Phase 18: torch.distributed on the one card. (A) NCCL at world size
+    1 from torchrun's variables: all_gather_counts, then the data-parallel
+    train step against the one-device step, float64 and float32; (B) two
+    processes on the card over gloo, the same steps on the same global
+    batches; (C) the multihost pipeline in two processes against one, with
+    the toy classifier and with the CNN; (D) the prefetch iterator,
+    fused_encode_infer and a Predictor with two replicas on the card
+    against the one-device Predictor. The paint kernel must not be
+    launched in (A)-(D); its entry on the kernels line says so. (E) the
+    PlanPredictor with two replicas against one (its launches are a
+    comparison's, not counted). Returns (numbers, the kernels entry)."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from deepvariant_tpu_torch.calling.call_variants import (ExampleRecord,
+                                                             Predictor)
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.io.bgzf import BgzfReader
+    from deepvariant_tpu_torch.make_examples.pileup import (PileupOptions,
+                                                            WGS_CHANNELS)
+    from deepvariant_tpu_torch.models.checkpoint import save_variables
+    from deepvariant_tpu_torch.models.inception_v3 import tree_to_flax
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.parallel import distribute, multihost
+    from deepvariant_tpu_torch.testing import synthetic
+
+    tag = "multi-gpu"
+    phase_start = time.time()
+    directory = os.path.join(tmp, tag)
+    os.makedirs(directory)
+    numbers = {}
+    pp.paint_pileup.launches = 0
+    weights, batches = multi_gpu_weights(), multi_gpu_batches()
+
+    # -- (A) NCCL at world size 1, from torchrun's variables --
+    with torchrun_environment((0, 1, free_port())):
+        rank_world = distribute.initialize_multihost(device=device,
+                                                     timeout_s=300)
+        try:
+            mesh = distribute.data_parallel_mesh(device)
+            backend = dist.get_backend()
+            if rank_world != (0, 1) or (device.type == "cuda" and
+                                        backend != "nccl"):
+                raise AssertionError(f"{tag}: {rank_world} over {backend}")
+            counts = distribute.all_gather_counts(7, mesh)
+            if counts.tolist() != [7]:
+                raise AssertionError(f"{tag}: all_gather_counts {counts}")
+            runs, tallies = {}, {}
+            for name, dtype in (("f64", torch.float64),
+                                ("f32", torch.float32)):
+                runs[f"one_{name}"] = data_parallel_steps(
+                    weights, batches, dtype, mesh.device)
+                tally = CollectiveTally(mesh.device)
+                with tally.active():
+                    runs[f"dp_{name}"] = data_parallel_steps(
+                        weights, batches, dtype, mesh.device, mesh)
+                tallies[name] = tally.summary()
+        finally:
+            distribute.shutdown()
+    start = {"params": tree_to_flax(weights["params"])}
+    reference = runs["one_f64"]
+    f64 = check_float64_runs(runs["dp_f64"], reference, start,
+                             f"{tag} (A) float64")
+    distances = {
+        "one_f32": check_against_float64(runs["one_f32"], reference, start,
+                                         f"{tag} one-device float32"),
+        "dp_f32": check_against_float64(runs["dp_f32"], reference, start,
+                                        f"{tag} (A) float32"),
+    }
+    numbers["A"] = {
+        "backend": backend, "all_gather_counts": counts.tolist(),
+        "f64_against_one_device": f64,
+        "f32_update_distance_to_f64": distances,
+        "losses": {k: v["losses"] for k, v in runs.items()},
+        "ms_per_step": {k: v["ms"] for k, v in runs.items()},
+        "collectives": tallies,
+    }
+    print(f"[{tag}] (A) {backend} world 1: counts {counts.tolist()}; "
+          f"float64 data-parallel against the one-device step {f64}; "
+          f"float32 update distances to float64 "
+          f"{distances}; ms per step " + json.dumps(
+              {k: [round(t, 2) for t in v["ms"]] for k, v in runs.items()})
+          + f"; collectives {json.dumps(tallies)}; {card}")
+
+    # -- (B) two processes on the card over gloo --
+    out = [os.path.join(directory, f"rank{r}.pkl") for r in range(2)]
+    start_b = time.time()
+    run_processes([[sys.executable, "-c",
+                    "import sys, chip_smoke; "
+                    "chip_smoke.multi_gpu_rank(*sys.argv[1:])",
+                    str(r), f"file://{directory}/store-b", out[r],
+                    device.type] for r in range(2)],
+                  f"{tag} (B)", MULTI_GPU_RANK_TIMEOUT_S)
+    seconds_b = time.time() - start_b
+    ranks = []
+    for path in out:
+        with open(path, "rb") as f:
+            ranks.append(pickle.load(f))
+    numbers["B"] = {"s": seconds_b, "backend": ranks[0]["backend"],
+                    "devices": [r["device"] for r in ranks]}
+    for name in ("f64", "f32"):
+        if ranks[0][name]["digest"] != ranks[1][name]["digest"]:
+            raise AssertionError(f"{tag} (B): the ranks' {name} states "
+                                 "differ")
+        got = ranks[0][name]
+        if name == "f64":
+            numbers["B"]["f64_against_one_device"] = check_float64_runs(
+                got, reference, start, f"{tag} (B) float64")
+        else:
+            numbers["B"]["f32_update_distance_to_f64"] = \
+                check_against_float64(got, reference, start,
+                                      f"{tag} (B) float32")
+        numbers["B"][f"{name}_losses"] = got["losses"]
+        numbers["B"][f"{name}_ms_per_step"] = [r[name]["ms"] for r in ranks]
+        numbers["B"][f"{name}_collectives"] = [r[name]["collectives"]
+                                               for r in ranks]
+    del ranks, runs
+    print(f"[{tag}] (B) 2 ranks over {numbers['B']['backend']} on "
+          f"{numbers['B']['devices']}: {json.dumps(numbers['B'])}; "
+          f"{seconds_b:.1f} s; {card}")
+
+    # -- (C) the multihost pipeline, two processes against one --
+    sample = synthetic.synthetic_sample(SEED + 18, MULTI_GPU_CONTIGS)
+    paths = write_sample_files(sample, os.path.join(directory, "files"),
+                               tag)
+    options = dict(reads_filename=paths["reads"],
+                   ref_filename=paths["ref"], examples_filename="",
+                   mode="calling", realigner_enabled=False,
+                   write_run_info=False)
+    checkpoint = os.path.join(directory, "ckpt")
+    save_variables(os.path.join(checkpoint, "model.msgpack"),
+                   seeded_model(SHAPE[2]),
+                   {"shape": list(SHAPE), "channels": WGS_CHANNELS})
+    numbers["C"] = {}
+    for route, extra, fields in (
+            ("toy", (), {}),
+            ("model", ("--use_model", "--checkpoint", checkpoint,
+                       "--dtype", "float32", "--batch_size", "64"),
+             dict(use_model=True, checkpoint=checkpoint,
+                  dtype=torch.float32, batch_size=64))):
+        two_dir = os.path.join(directory, f"two-{route}")
+        two, two_s = multihost_pair(two_dir, options, device,
+                                    f"{tag} (C) {route}", extra)
+        one_dir = os.path.join(directory, f"one-{route}")
+        os.makedirs(one_dir)
+        start_one = time.time()
+        one = multihost.run_host(one_dir, options, list(MULTI_GPU_REGIONS),
+                                 sample_name="HG002", device=device,
+                                 **fields)
+        one_s = time.time() - start_one
+        if one["all_counts"] != [sum(two[0]["all_counts"])]:
+            raise AssertionError(f"{tag} (C) {route}: {one['all_counts']} "
+                                 f"against {two[0]['all_counts']}")
+        two_vcf = BgzfReader(two[0]["output_vcf"]).read_all()
+        one_vcf = BgzfReader(one["output_vcf"]).read_all()
+        max_diff = 0.0
+        if route == "toy":
+            if two_vcf != one_vcf:
+                raise AssertionError(f"{tag} (C) toy: the VCFs differ")
+        else:
+            two_cvos = sorted_cvos([os.path.join(
+                two_dir, f"cvo-{i:05d}-of-00002.tfrecord.gz")
+                for i in range(2)])
+            one_cvos = sorted_cvos([os.path.join(
+                one_dir, "cvo-00000-of-00001.tfrecord.gz")])
+            if [locus_key(c.variant, c.alt_allele_indices)
+                    for c in two_cvos] != [
+                    locus_key(c.variant, c.alt_allele_indices)
+                    for c in one_cvos]:
+                raise AssertionError(f"{tag} (C) model: the loci differ")
+            max_diff = max(float(np.max(np.abs(
+                np.asarray(a.genotype_probabilities)
+                - np.asarray(b.genotype_probabilities))))
+                for a, b in zip(two_cvos, one_cvos))
+            if max_diff > MULTI_GPU_PROB_ATOL:
+                raise AssertionError(f"{tag} (C) model: probabilities "
+                                     f"{max_diff} apart")
+            if vcf_lines(two_vcf) != vcf_lines(one_vcf):
+                raise AssertionError(f"{tag} (C) model: the VCF records "
+                                     "differ")
+        numbers["C"][route] = {
+            "two_process_s": two_s, "one_process_s": one_s,
+            "counts": two[0]["all_counts"],
+            "vcf_records": len(vcf_lines(two_vcf)),
+            "max_prob_diff": max_diff}
+    print(f"[{tag}] (C) multihost, 2 processes against 1: "
+          f"{json.dumps(numbers['C'])}; {card}")
+
+    # -- (D) prefetch, fused_encode_infer, two replicas on the card --
+    model = seeded_model(SHAPE[2])
+    rng = np.random.RandomState(SEED + 19)
+    images = rng.randint(0, 256, (MULTI_GPU_EXAMPLES,) + SHAPE).astype(
+        np.uint8)
+    records = [ExampleRecord(image=img, variant=None,
+                             alt_allele_indices=[0]) for img in images]
+    one = Predictor(model, BATCH, device, torch.float32)
+    two = Predictor(model, BATCH, device, torch.float32,
+                    devices=[one.device, one.device])
+    timed_d = {}
+    results = {}
+    for name, predictor in (("one", one), ("two", two)):
+        start_d = time.time()
+        pairs = list(predictor.predict_stream(iter(records)))
+        timed_d[f"{name}_replica_s"] = time.time() - start_d
+        if [r for r, _ in pairs] != records:
+            raise AssertionError(f"{tag} (D): {name} reordered records")
+        results[name] = np.stack([p for _, p in pairs])
+    replica_diff = float(np.max(np.abs(results["two"] - results["one"])))
+    if replica_diff > MULTI_GPU_PROB_ATOL:
+        raise AssertionError(f"{tag} (D): two replicas {replica_diff} "
+                             "from one")
+    full = MULTI_GPU_EXAMPLES - MULTI_GPU_EXAMPLES % BATCH
+    fused = np.concatenate(list(distribute.fused_encode_infer(
+        (images[i:i + BATCH] for i in range(0, full, BATCH)),
+        lambda variables, batch: one.forward(batch), None, device)))
+    fused_diff = float(np.max(np.abs(fused - results["one"][:full])))
+    if fused_diff > MULTI_GPU_PROB_ATOL:
+        raise AssertionError(f"{tag} (D): fused_encode_infer {fused_diff} "
+                             "from the Predictor")
+    moved = list(distribute.DevicePrefetchIterator(
+        ({"i": np.full(4, i, np.int32), "x": images[i, :2]}
+         for i in range(6)), device))
+    if [int(m["i"][0]) for m in moved] != list(range(6)) or any(
+            m["x"].device.type != device.type or not np.array_equal(
+                m["x"].cpu().numpy(), images[i, :2])
+            for i, m in enumerate(moved)):
+        raise AssertionError(f"{tag} (D): the prefetch iterator")
+    launches = pp.paint_pileup.launches
+    numbers["D"] = {**timed_d, "replica_max_diff": replica_diff,
+                    "fused_max_diff": fused_diff,
+                    "batch_size": [one.batch_size, two.batch_size]}
+    print(f"[{tag}] (D) {json.dumps(numbers['D'])}; paint kernel launches "
+          f"in (A)-(D): {launches}; {card}")
+    if launches != 0:
+        raise AssertionError(f"{tag}: the paint kernel was launched "
+                             f"{launches} times")
+    del one, two, results
+
+    # -- (E) the plan path with two replicas (a comparison) --
+    options_wgs = PileupOptions()
+    plans = random_plans(BATCH + 40, SEED + 20)
+    want = PlanPredictor(model, options_wgs, batch_size=BATCH, device=device,
+                         dtype=torch.float32)
+    got = PlanPredictor(model, options_wgs, batch_size=BATCH, device=device,
+                        dtype=torch.float32, devices=[want.predictor.device]
+                        * 2)
+    probs = [np.stack([p for _, p in predictor.predict_plan_stream(
+        iter([type("Planned", (), {"plan": p}) for p in plans]))])
+        for predictor in (want, got)]
+    plan_diff = float(np.max(np.abs(probs[1] - probs[0])))
+    if plan_diff > MULTI_GPU_PROB_ATOL:
+        raise AssertionError(f"{tag} (E): two replicas {plan_diff} from one")
+    numbers["E_plan_replica_max_diff"] = plan_diff
+    numbers["phase18_s"] = time.time() - phase_start
+    print(f"[{tag}] (E) PlanPredictor, two replicas against one: "
+          f"{plan_diff:.3g}; phase 18 {numbers['phase18_s']:.1f} s; {card}")
+    entry = {**paint_entry, "name": "pileup_paint_plan_multi_gpu",
+             "launches": launches, "expected_launches": 0,
+             "path": "phase 18: data-parallel steps, multihost, Predictor "
+                     "replicas (host-painted or no pileups, as in JAX)"}
+    return numbers, entry
+
+
+def vcf_lines(text: bytes) -> list:
+    return [line for line in text.split(b"\n")
+            if line and not line.startswith(b"#")]
+
+
 def main() -> int:
     import torch
 
@@ -4981,12 +5648,22 @@ def main() -> int:
             tmp, device, card)
         summary["simulated"] = simulated_numbers
         kernels.append(simulated_kernel)
+        # torch.distributed on the one card: NCCL at world size 1, two
+        # ranks over gloo, the multihost pipeline, replicas.
+        multi_numbers, multi_kernel = phase_multi_gpu(
+            tmp, device, card, wgs_kernel)
+        summary["multi_gpu"] = multi_numbers
+        kernels.append(multi_kernel)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)
 
     for k in kernels:
-        if k["launches"] <= 0:
+        if k.get("expected_launches") == 0:
+            if k["launches"] != 0:
+                raise AssertionError(f"kernel {k['name']} was launched on "
+                                     "a path that paints nothing")
+        elif k["launches"] <= 0:
             raise AssertionError(f"kernel {k['name']} was not launched on "
                                  "its path")
     summary.update(staged)

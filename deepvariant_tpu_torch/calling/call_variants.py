@@ -10,11 +10,15 @@ Counterpart of `deepvariant_tpu/calling/call_variants.py`:
     and results come back in order through pinned buffers.
   * Probabilities are rounded like the reference's `round_gls`
     (call_variants.py:248-263) before the CVO is written.
+  * Several devices (the MirroredStrategy of call_variants.py:782, JAX's
+    data-sharded jit): `Predictor(devices=...)` cuts each batch into one
+    contiguous part per device.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -191,8 +195,46 @@ def predict_in_order(
             yield item, row
 
 
+class _InOrder:
+    """The parts of one batch's result, each on its way back from its
+    device, joined in order."""
+
+    def __init__(self, parts: List[PendingResult]):
+        self._parts = parts
+
+    def numpy(self) -> np.ndarray:
+        return np.concatenate([p.numpy() for p in self._parts])
+
+
+class _Replica:
+    """One device's share of each batch: the model on that device, the
+    stream it runs on (None: the caller's current stream) and its own
+    stager."""
+
+    def __init__(self, model: InceptionV3, device: torch.device,
+                 keep: Optional[torch.Tensor], own_stream: bool):
+        self.model = model
+        self.device = device
+        self.keep = keep
+        self.stream = torch.cuda.Stream(device) if own_stream else None
+        self.stager = BatchStager(device, slots=3)
+
+    def on_stream(self):
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+
 class Predictor:
-    """InceptionV3 forward over uint8 pileups, on one device."""
+    """InceptionV3 forward over uint8 pileups, on one device or several.
+
+    `devices` defaults to every visible card when `device` is CUDA
+    without an index (JAX: `jax.devices()`), else to `device`. Over n
+    devices the batch size is rounded as the JAX Predictor rounds it
+    (`b - b % n or n`), each padded batch is cut into n contiguous parts,
+    and part i runs on device i's replica of the model (its weights
+    copied once per device) on its own stream, staged by its own
+    `BatchStager`; the parts' results are joined in order."""
 
     def __init__(
         self,
@@ -203,8 +245,9 @@ class Predictor:
         ablation_channels: Optional[Sequence[int]] = None,
         fold_bn: bool = False,
         pad_stem_to: Optional[int] = None,
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
-        self.device = resolve_device(device)
+        device = resolve_device(device)
         full_float32_precision()
         if fold_bn:
             # Export-time BN folding: conv + bias + relu, exact to float32
@@ -216,33 +259,88 @@ class Predictor:
             # images to match on the device.
             model = pad_stem_input_channels(model, pad_stem_to)
             self.pad_stem_to = pad_stem_to
-        self.model = prepare_for_inference(model, self.device, dtype)
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if device.type == "cuda" and device.index is None
+                       else [device])
+        devices = [resolve_device(d) for d in devices]
+        self.device = devices[0]
         self.dtype = dtype
-        self.batch_size = batch_size
-        self.keep = None
-        if ablation_channels:
-            self.keep = torch.tensor(list(ablation_channels),
-                                     dtype=torch.int64, device=self.device)
-        # Two batches in flight and one being filled.
-        self.stager = BatchStager(self.device, slots=3)
+        n = len(devices)
+        self.batch_size = batch_size - batch_size % n or n
+        models: Dict[torch.device, InceptionV3] = {}
+        self.replicas = []
+        for i, d in enumerate(devices):
+            if d not in models:
+                models[d] = prepare_for_inference(model, d, dtype)
+            keep = None
+            if ablation_channels:
+                keep = torch.tensor(list(ablation_channels),
+                                    dtype=torch.int64, device=d)
+            own_stream = i > 0 and d.type == "cuda"
+            self.replicas.append(_Replica(models[d], d, keep, own_stream))
+
+    @property
+    def model(self) -> InceptionV3:
+        return self.replicas[0].model
+
+    @property
+    def stager(self) -> BatchStager:
+        """The first device's stager (two batches in flight and one being
+        filled)."""
+        return self.replicas[0].stager
 
     @torch.inference_mode()
-    def forward(self, images_u8: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) uint8 on the device -> (B, 3) float32 probs."""
+    def forward(self, images_u8: torch.Tensor,
+                replica: Optional[_Replica] = None) -> torch.Tensor:
+        """(B, H, W, C) uint8 on a device -> (B, 3) float32 probs, by the
+        replica on that device (the first device's by default)."""
+        r = replica or self.replicas[0]
         x = normalize_pileup(images_u8, self.dtype)
-        if self.keep is not None:
-            x = x.index_select(-1, self.keep)
+        if r.keep is not None:
+            x = x.index_select(-1, r.keep)
         if self.pad_stem_to and x.shape[-1] < self.pad_stem_to:
             x = torch.nn.functional.pad(
                 x, (0, self.pad_stem_to - x.shape[-1]))
-        return self.model(x)
+        return r.model(x)
 
-    def _submit_images(self, images: List[np.ndarray]) -> PendingResult:
+    def _in_parts(self, part_images) -> Union[PendingResult, _InOrder]:
+        """Runs each replica on `part_images(i, replica)`, its part of the
+        batch on its device, called on its stream."""
+        parts = []
+        for i, r in enumerate(self.replicas):
+            with r.on_stream():
+                parts.append(PendingResult(
+                    self.forward(part_images(i, r), r)))
+        return parts[0] if len(parts) == 1 else _InOrder(parts)
+
+    def _submit_images(self, images: List[np.ndarray]):
         pad = self.batch_size - len(images)
         if pad > 0:
             images = list(images) + [np.zeros_like(images[0])] * pad
-        staged = self.stager.stage({"images": images})
-        return PendingResult(self.forward(staged["images"]))
+        size = self.batch_size // len(self.replicas)
+        return self._in_parts(lambda i, r: r.stager.stage(
+            {"images": images[i * size:(i + 1) * size]})["images"])
+
+    def submit_device_images(self, images_u8: torch.Tensor):
+        """(batch_size, H, W, C) uint8 images on the first device, made on
+        its current stream -> the pending (batch_size, 3) probabilities.
+        Each replica's part is copied to its device on its stream, after
+        the work that made the images."""
+        size = self.batch_size // len(self.replicas)
+        made_on = (torch.cuda.current_stream(images_u8.device)
+                   if images_u8.is_cuda else None)
+
+        def part(i, r):
+            piece = images_u8[i * size:(i + 1) * size]
+            if r.stream is None:
+                return piece
+            r.stream.wait_stream(made_on)
+            images_u8.record_stream(r.stream)
+            return piece.to(r.device, non_blocking=True)
+
+        return self._in_parts(part)
 
     def __call__(self, images_u8: np.ndarray) -> np.ndarray:
         """(B, H, W, C) uint8 numpy, B <= batch_size -> (B, 3) probs."""

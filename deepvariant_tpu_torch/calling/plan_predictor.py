@@ -8,18 +8,20 @@ InceptionV3 without the image leaving device memory. Any ordered list
 of the device channels is painted; with `alt_aligned_pileup`
 'diff_channels' the plans also carry the alt tensors (`ALT_KEYS`) and
 the image has two more planes, so the model must take
-`len(channels) + 2` channels.
+`len(channels) + 2` channels. Over several devices (`devices`, as
+`Predictor` takes them) the whole batch is painted on the first device
+and each other device's part of it is copied there.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, List, Tuple, Union
+from typing import (Iterable, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from deepvariant_tpu_torch.calling.call_variants import (
-    PendingResult,
     Predictor,
     predict_in_order,
 )
@@ -55,6 +57,7 @@ class PlanPredictor:
         device: Union[str, torch.device] = "cuda",
         dtype: torch.dtype = torch.bfloat16,
         fold_bn: bool = False,
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
         o = pileup_options
         self.options = o
@@ -69,8 +72,8 @@ class PlanPredictor:
         self._keys = PLAN_KEYS + (ALT_KEYS if self.diff_mode else ())
         self.predictor = Predictor(model, batch_size=batch_size,
                                    device=device, dtype=dtype,
-                                   fold_bn=fold_bn)
-        self.batch_size = batch_size
+                                   fold_bn=fold_bn, devices=devices)
+        self.batch_size = self.predictor.batch_size
         rows = o.height - o.reference_band_height
         # Template zero plan for batch padding / stripped alt keys.
         self._zero_plan = {
@@ -111,8 +114,8 @@ class PlanPredictor:
         staged = self.stage(plans)
         return self.encode_fn(*[staged[k] for k in self._keys])
 
-    def _submit(self, plans: List[dict]) -> PendingResult:
-        return PendingResult(self.predictor.forward(self.encode(plans)))
+    def _submit(self, plans: List[dict]):
+        return self.predictor.submit_device_images(self.encode(plans))
 
     def __call__(self, plans: List[dict]) -> np.ndarray:
         """plans (<= batch_size dicts) -> (len(plans), 3) float probs."""

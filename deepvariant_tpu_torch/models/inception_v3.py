@@ -33,8 +33,9 @@ channel count, as keras_modeling.py:113-169 does it).
 
 from __future__ import annotations
 
+import contextlib
 import copy
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,7 +58,17 @@ class BatchNorm(nn.Module):
     float32 with the fast variance E[x^2] - E[x]^2 (clipped at 0), and
     `ra = momentum * ra + (1 - momentum) * batch`. torch's own running
     update takes the unbiased variance and the other momentum, so it is
-    not used: the running tensors are written here, in place."""
+    not used: the running tensors are written here, in place.
+
+    Under data parallelism (`sync_batch_norm`) the statistics are the
+    global batch's: each rank's count, per-channel mean and sum of
+    squared deviations are gathered from every rank by
+    `gather_over_ranks` (which autograd differentiates) and combined
+    (Chan et al.'s pairwise update), and the layer normalizes with the
+    global mean and that variance, which is the stable form
+    torch.batch_norm takes on one device; the running variance moves by
+    flax's fast E[x^2] - E[x]^2 of the same global batch, as on one
+    device. One collective per layer forward and one backward."""
 
     def __init__(self, features: int, momentum: float = 0.9997):
         super().__init__()
@@ -65,20 +76,52 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.gather_over_ranks: Optional[Callable] = None
+
+    def _update_running(self, mean, var):
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+
+    def _forward_synced(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = x.shape[1]
+        count = torch.full((1,), x.numel() // c, dtype=xf.dtype,
+                           device=x.device)
+        local_mean = xf.mean(dim=(0, 2, 3))
+        local_m2 = (xf - local_mean.view(1, c, 1, 1)).square().sum(
+            dim=(0, 2, 3))
+        rows = self.gather_over_ranks(torch.cat([count, local_mean,
+                                                 local_m2]))
+        counts, means, m2s = rows[:, :1], rows[:, 1:c + 1], rows[:, c + 1:]
+        total = counts.sum()
+        mean = (means * (counts / total)).sum(dim=0)
+        m2 = (m2s + counts * (means - mean).square()).sum(dim=0)
+        var = m2 / total
+        with torch.no_grad():
+            square_mean = ((m2s + counts * means.square()).sum(dim=0)
+                           / total)
+            self._update_running(
+                mean, torch.clamp_min(square_mean - mean.square(), 0.0))
+        scale = torch.rsqrt(var + BN_EPSILON)
+        y = (xf - mean.view(1, c, 1, 1)) * scale.view(1, c, 1, 1) \
+            + self.bias.view(1, c, 1, 1)
+        return y.to(x.dtype)
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, None, self.bias,
                                 False, 0.0, BN_EPSILON)
+        if self.gather_over_ranks is not None:
+            return self._forward_synced(x)
         with torch.no_grad():
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp_min(
                 xf.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
             del xf
-            m = self.momentum
-            self.mean.copy_(m * self.mean + (1 - m) * mean)
-            self.var.copy_(m * self.var + (1 - m) * var)
+        self._update_running(mean, var)
         # The normalization itself (float32 inside, the output in the
         # input's dtype, as flax casts it) and its gradient through the
         # batch statistics; torch.batch_norm, as flax, also takes one
@@ -88,6 +131,21 @@ class BatchNorm(nn.Module):
         return torch.batch_norm(x, torch.ones_like(self.bias), self.bias,
                                 None, None, True, 0.0, BN_EPSILON,
                                 torch.backends.cudnn.enabled)
+
+
+@contextlib.contextmanager
+def sync_batch_norm(model: nn.Module, gather_over_ranks: Optional[Callable]):
+    """Every BatchNorm of `model` takes its training statistics over the
+    ranks while the block runs: `gather_over_ranks(t)` returns every
+    rank's `t` stacked, in rank order (None: the local batch's)."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for layer in layers:
+        layer.gather_over_ranks = gather_over_ranks
+    try:
+        yield
+    finally:
+        for layer in layers:
+            layer.gather_over_ranks = None
 
 
 class ConvBN(nn.Module):

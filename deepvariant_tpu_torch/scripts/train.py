@@ -11,7 +11,11 @@ The port's copy of `deepvariant_tpu.scripts.train`, plus `--device`.
 Dataset configs are DeepVariantDatasetConfig pbtxt (or .json) files
 (training.data.DatasetConfig: name / tfrecord_path / num_examples).
 Training runs on one CUDA card unless `--device cpu` is given; a request
-for CUDA without a card raises.
+for CUDA without a card raises. Launched by torchrun it trains
+data-parallel, one process per card (NCCL; gloo with `--device cpu`):
+
+  torchrun --nproc_per_node=<cards> -m deepvariant_tpu_torch.scripts.train \
+    --config wgs --train_dataset_config ... --experiment_dir ...
 """
 
 from __future__ import annotations
@@ -39,6 +43,10 @@ def main(argv=None) -> int:
 
     import dataclasses
 
+    from deepvariant_tpu_torch.parallel.distribute import (
+        initialize_multihost,
+        shutdown,
+    )
     from deepvariant_tpu_torch.training.config import get_config
     from deepvariant_tpu_torch.training.train import train
 
@@ -56,10 +64,15 @@ def main(argv=None) -> int:
     if args.limit:
         overrides["limit"] = args.limit
     config = dataclasses.replace(config, **overrides)
-    metrics = train(
-        config, args.experiment_dir, device=args.device,
-        max_steps=args.max_steps or None,
-    )
+    # torchrun's variables, when it launched this process; else one rank.
+    initialize_multihost(device=args.device)
+    try:
+        metrics = train(
+            config, args.experiment_dir, device=args.device,
+            max_steps=args.max_steps or None,
+        )
+    finally:
+        shutdown()
     print(f"train done: {metrics}")
     return 0
 

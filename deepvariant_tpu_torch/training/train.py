@@ -31,8 +31,18 @@ scalars kept on the host, so the schedule and the dropout seed need no
 round trip to the card. Dropout draws from a generator seeded from
 (seed, step, micro step): torch cannot draw JAX's masks.
 
-`data_parallel_mesh` and `shard_train_step` have no counterpart: the
-port trains on one device (multi-GPU is a later slice).
+Data parallelism (JAX: `data_parallel_mesh` + `shard_train_step`, a jit
+over a batch sharded on a `data` mesh axis) is one process per device
+under torch.distributed (`parallel.distribute.DataParallel`): every rank
+holds the replicated state and its rows of each global batch
+(`DataParallel.local_rows`: its part of every micro batch), and the step
+computes what the one-rank step computes on the global batch, up to
+float32 summation order. Batch norm takes the global batch's statistics
+(`inception_v3.sync_batch_norm`), each rank's loss term divides by the
+global weight sum, the L2 penalty is added on rank 0 only, and the
+gradients, the micro losses and the confusion matrices are summed over
+the ranks in one flat all-reduce; every rank then applies the same
+update. `train()` runs over the group: rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -48,12 +58,17 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from deepvariant_tpu_torch.device import full_float32_precision, resolve_device
+from deepvariant_tpu_torch.device import full_float32_precision
 from deepvariant_tpu_torch.io import examples as example_codec
 from deepvariant_tpu_torch.models import checkpoint as ckpt_lib
 from deepvariant_tpu_torch.models.inception_v3 import (
     create_model,
     normalize_pileup,
+    sync_batch_norm,
+)
+from deepvariant_tpu_torch.parallel.distribute import (
+    DataParallel,
+    data_parallel_mesh,
 )
 from deepvariant_tpu_torch.training import metrics as metrics_lib
 from deepvariant_tpu_torch.training.config import TrainConfig
@@ -234,32 +249,50 @@ def _l2_kernel_penalty(params: Tree, weight_decay: float):
     return weight_decay * total
 
 
-def loss_fn(
+def weighted_loss_sum(
     probabilities: torch.Tensor,
     labels: torch.Tensor,
     sample_weights: torch.Tensor,
     label_smoothing: float,
 ) -> torch.Tensor:
-    """Weighted categorical cross-entropy over softmax outputs: the log
-    of the probabilities clipped to [1e-7, 1], not log_softmax, as the
-    JAX package computes it (the gradients differ where the clip bites)."""
+    """The numerator of `loss_fn`: the weighted cross-entropy summed over
+    the batch."""
     onehot = F.one_hot(labels.long(), NUM_CLASSES).to(torch.float32)
     if label_smoothing:
         onehot = onehot * (1.0 - label_smoothing) + label_smoothing / \
             NUM_CLASSES
     logp = torch.log(torch.clamp(probabilities, 1e-7, 1.0))
     per_example = -torch.sum(onehot * logp, dim=-1) * sample_weights
-    # compute_average_loss semantics: sum / global weight sum.
-    return torch.sum(per_example) / torch.clamp_min(
-        torch.sum(sample_weights), 1e-6)
+    return torch.sum(per_example)
+
+
+def loss_fn(
+    probabilities: torch.Tensor,
+    labels: torch.Tensor,
+    sample_weights: torch.Tensor,
+    label_smoothing: float,
+    weight_total: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Weighted categorical cross-entropy over softmax outputs: the log
+    of the probabilities clipped to [1e-7, 1], not log_softmax, as the
+    JAX package computes it (the gradients differ where the clip bites).
+    compute_average_loss semantics: the sum over the global weight sum,
+    which is `weight_total` where this batch is one rank's part."""
+    if weight_total is None:
+        weight_total = torch.sum(sample_weights)
+    return weighted_loss_sum(probabilities, labels, sample_weights,
+                             label_smoothing) / torch.clamp_min(
+        weight_total, 1e-6)
 
 
 def dropout_generator(seed: int, step: int, micro: int,
-                      device: torch.device) -> torch.Generator:
+                      device: torch.device, rank: int = 0
+                      ) -> torch.Generator:
     """A generator for one micro step's dropout masks, seeded from
-    (seed, step, micro step) so that a run is deterministic."""
-    words = np.random.SeedSequence([seed, step, micro]).generate_state(
-        2, np.uint32)
+    (seed, step, micro step, rank) so that a run is deterministic; rank
+    0 draws what the one-rank step draws."""
+    entropy = [seed, step, micro] + ([rank] if rank else [])
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     generator = torch.Generator(device=device)
     generator.manual_seed(int(words[0]) << 31 | int(words[1]) >> 1)
     return generator
@@ -283,7 +316,8 @@ def _confusions(labels, preds, variant_types) -> Dict[str, torch.Tensor]:
 
 
 def make_train_step(model: torch.nn.Module, tx: Optimizer,
-                    config: TrainConfig):
+                    config: TrainConfig,
+                    data_parallel: Optional[DataParallel] = None):
     """Returns `train_step(state, batch) -> (new state, loss, confusion
     matrices)`, `batch` a dict of tensors on the state's device.
 
@@ -295,24 +329,41 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
     the micro losses (each with the L2 penalty), the batch-norm running
     statistics move once per micro-batch, and the optimizer applies one
     update. The state's batch_stats are copied first, so the state passed
-    in is left as it was."""
+    in is left as it was.
+
+    With `data_parallel` in a process group, `batch` is this rank's rows
+    of the global batch (`DataParallel.local_batch` with the same
+    accumulation), and the step returns on every rank what the one-rank
+    step returns for the global batch: the new replicated state, the
+    global loss and the global confusion matrices."""
     accum = max(int(getattr(
         config, "gradient_accumulation_steps", 1) or 1), 1)
+    dp = data_parallel if data_parallel is not None and \
+        data_parallel.grouped else None
+    rank = dp.rank if dp is not None else 0
 
-    def micro_grad(params, batch_stats, micro_batch, generator):
+    def micro_grad(params, batch_stats, micro_batch, generator,
+                   weight_total):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         x = normalize_pileup(micro_batch["images"], model.compute_dtype)
         probs = functional_call(model, {**leaves, **batch_stats}, (x,),
                                 {"generator": generator})
-        loss = loss_fn(
+        data = loss_fn(
             probs,
             micro_batch["labels"],
             micro_batch["sample_weights"],
             config.label_smoothing,
-        ) + _l2_kernel_penalty(leaves, config.weight_decay)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), probs.detach(), dict(zip(leaves, grads))
+            weight_total,
+        )
+        penalty = _l2_kernel_penalty(leaves, config.weight_decay)
+        # Over ranks the penalty enters the gradient sum once.
+        objective = data + penalty if rank == 0 else data
+        grads = torch.autograd.grad(objective, list(leaves.values()))
+        if torch.is_tensor(penalty):
+            penalty = penalty.detach()
+        return (data.detach(), penalty, probs.detach(),
+                dict(zip(leaves, grads)))
 
     def train_step(state: dict, batch: Dict[str, torch.Tensor]):
         model.train()
@@ -320,33 +371,46 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
         device = next(iter(params.values())).device
         step = int(state["step"])
         batch_stats = {k: v.clone() for k, v in state["batch_stats"].items()}
-        if accum == 1:
-            loss, probs, grads = micro_grad(
-                params, batch_stats, batch,
-                dropout_generator(config.seed, step, 0, device))
-        else:
-            size = batch["labels"].shape[0] // accum
-            grad_sum, loss_sum, all_probs = None, None, []
-            for i in range(accum):
-                micro = {k: v[i * size:(i + 1) * size]
-                         for k, v in batch.items()}
-                loss_i, probs_i, g = micro_grad(
+        size = batch["labels"].shape[0] // accum
+        micros = [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                  for i in range(accum)]
+        totals = [None] * accum
+        if dp is not None:
+            totals = dp.all_reduce_sum(torch.stack(
+                [m["sample_weights"].sum() for m in micros]))
+        grad_sum, data_losses, penalties, all_probs = None, [], [], []
+        with sync_batch_norm(model, dp.gather_over_ranks if dp else None):
+            for i, micro in enumerate(micros):
+                data_i, penalty_i, probs_i, g = micro_grad(
                     params, batch_stats, micro,
-                    dropout_generator(config.seed, step, i, device))
+                    dropout_generator(config.seed, step, i, device, rank),
+                    totals[i])
                 if grad_sum is None:
-                    grad_sum, loss_sum = g, loss_i
+                    grad_sum = g
                 else:
                     keys = _keys(grad_sum)
                     grad_sum = dict(zip(keys, torch._foreach_add(
                         _values(grad_sum, keys), _values(g, keys))))
-                    loss_sum = loss_sum + loss_i
+                data_losses.append(data_i)
+                penalties.append(penalty_i)
                 all_probs.append(probs_i)
+        probs = torch.cat(all_probs)
+        cms = _confusions(batch["labels"], torch.argmax(probs, dim=-1),
+                          batch["variant_types"])
+        data_losses = torch.stack(data_losses)
+        if dp is not None:
+            data_losses, cms = _sum_over_ranks(dp, grad_sum, data_losses,
+                                               cms)
+        loss = data_losses[0] + penalties[0]
+        for i in range(1, accum):
+            loss = loss + (data_losses[i] + penalties[i])
+        grads = grad_sum
+        if accum > 1:
             inv = float(np.float32(1.0 / accum))
             keys = _keys(grad_sum)
             grads = dict(zip(keys, torch._foreach_mul(
                 _values(grad_sum, keys), inv)))
-            loss = loss_sum * inv
-            probs = torch.cat(all_probs)
+            loss = loss * inv
         updates, new_opt_state = tx.update(grads, state["opt_state"], params)
         new_params = apply_updates(params, updates)
         if config.use_ema:
@@ -359,7 +423,6 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
                                    1.0 - decay))))
         else:
             new_ema = new_params
-        preds = torch.argmax(probs, dim=-1)
         new_state = {
             "params": new_params,
             "batch_stats": batch_stats,
@@ -367,13 +430,48 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
             "ema_params": new_ema,
             "step": _count(step + 1),
         }
-        return new_state, loss, _confusions(
-            batch["labels"], preds, batch["variant_types"])
+        return new_state, loss, cms
 
     return train_step
 
 
-def make_eval_step(model: torch.nn.Module, config: TrainConfig):
+def _sum_over_ranks(dp: DataParallel, grads: Tree,
+                    data_losses: torch.Tensor,
+                    cms: Dict[str, torch.Tensor]):
+    """Sum this rank's gradients (in place), micro losses and confusion
+    matrices over the ranks in one flat all-reduce."""
+    keys = _keys(grads)
+    dtype = grads[keys[0]].dtype
+    names = list(cms)
+    flat = torch.cat([grads[k].reshape(-1) for k in keys]
+                     + [data_losses.to(dtype)]
+                     + [cms[n].reshape(-1).to(dtype) for n in names])
+    dp.all_reduce_sum(flat)
+    offset = 0
+    for k in keys:
+        g = grads[k]
+        g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+        offset += g.numel()
+    n = data_losses.numel()
+    data_losses = flat[offset:offset + n].to(data_losses.dtype)
+    offset += n
+    summed = {}
+    for name in names:
+        cm = cms[name]
+        summed[name] = flat[offset:offset + cm.numel()].view(
+            cm.shape).to(cm.dtype)
+        offset += cm.numel()
+    return data_losses, summed
+
+
+def make_eval_step(model: torch.nn.Module, config: TrainConfig,
+                   data_parallel: Optional[DataParallel] = None):
+    """Returns `eval_step(state, batch) -> (loss, confusion matrix)`;
+    with `data_parallel` in a group, over the global batch of which
+    `batch` is this rank's rows."""
+    dp = data_parallel if data_parallel is not None and \
+        data_parallel.grouped else None
+
     @torch.no_grad()
     def eval_step(state: dict, batch: Dict[str, torch.Tensor]):
         model.eval()
@@ -381,18 +479,22 @@ def make_eval_step(model: torch.nn.Module, config: TrainConfig):
         x = normalize_pileup(batch["images"], model.compute_dtype)
         probs = functional_call(model, {**params, **state["batch_stats"]},
                                 (x,))
-        loss = loss_fn(
-            probs,
-            batch["labels"],
-            batch["sample_weights"],
-            config.label_smoothing,
-        )
         preds = torch.argmax(probs, dim=-1)
         cm = metrics_lib.confusion_update(
             metrics_lib.empty_confusion(probs.device), batch["labels"],
             preds, mask=batch["sample_weights"] > 0,
         )
-        return loss, cm
+        if dp is None:
+            return loss_fn(probs, batch["labels"], batch["sample_weights"],
+                           config.label_smoothing), cm
+        numerator = weighted_loss_sum(probs, batch["labels"],
+                                      batch["sample_weights"],
+                                      config.label_smoothing)
+        flat = dp.all_reduce_sum(torch.cat([
+            numerator.reshape(1), batch["sample_weights"].sum().reshape(1),
+            cm.reshape(-1).to(numerator.dtype)]))
+        return (flat[0] / torch.clamp_min(flat[1], 1e-6),
+                flat[2:].view(cm.shape).to(cm.dtype))
 
     return eval_step
 
@@ -475,9 +577,16 @@ def train(
     device: Union[str, torch.device] = "cuda",
     max_steps: Optional[int] = None,
     log_fn=print,
+    data_parallel: Optional[DataParallel] = None,
 ) -> Dict[str, float]:
-    """Full training run; returns final tune metrics."""
-    device = resolve_device(device)
+    """Full training run; returns final tune metrics.
+
+    In a process group (`initialize_multihost`, e.g. under torchrun) it
+    trains data-parallel: every rank reads the same batches (the same
+    seed) and takes its rows of each, the metrics are the global batch's,
+    and only rank 0 writes checkpoints and example_info.json."""
+    dp = data_parallel or data_parallel_mesh(device)
+    device = dp.device
     full_float32_precision()
     train_ds_cfg = DatasetConfig.read(config.train_dataset_config)
     tune_ds_cfg = DatasetConfig.read(config.tune_dataset_config)
@@ -504,8 +613,12 @@ def train(
     if config.init_checkpoint:
         state = load_checkpoint(config.init_checkpoint, state)
 
-    step_fn = make_train_step(model, tx, config)
-    eval_fn = make_eval_step(model, config)
+    step_fn = make_train_step(model, tx, config, dp)
+    eval_fn = make_eval_step(model, config, dp)
+    accum = max(int(config.gradient_accumulation_steps or 1), 1)
+
+    def local(batch: Batch, accum: int = 1) -> Dict[str, torch.Tensor]:
+        return _to_device(dp.local_batch(_batch_dict(batch), accum), device)
 
     ckpt_dir = os.path.join(experiment_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -522,8 +635,7 @@ def train(
         t0 = time.time()
         for _ in range(steps_per_epoch):
             batch = next(train_iter)
-            state, loss, cms = step_fn(state, _to_device(_batch_dict(batch),
-                                                         device))
+            state, loss, cms = step_fn(state, local(batch, accum))
             losses.append(loss)
             cm_all += cms["all"]
             total_steps += 1
@@ -547,8 +659,7 @@ def train(
         ):
             if i >= steps_per_tune:
                 break
-            loss, cm = eval_fn(state, _to_device(_batch_dict(batch),
-                                                 device))
+            loss, cm = eval_fn(state, local(batch))
             tune_losses.append(loss)
             tune_cm += cm
         tune_metrics = metrics_lib.metrics_from_confusion(
@@ -562,24 +673,30 @@ def train(
         log_fn(f"epoch {epoch}: " + json.dumps(
             {k: round(v, 5) for k, v in results.items()}))
 
-        save_checkpoint(
-            os.path.join(ckpt_dir, f"ckpt-{epoch}.msgpack"),
-            state, example_info,
-        )
-        # Keep only the latest epoch checkpoint plus best.msgpack
-        # (the reference's CheckpointManager max_to_keep analog);
-        # a full InceptionV3 state is ~260 MB per epoch otherwise.
-        prev = os.path.join(ckpt_dir, f"ckpt-{epoch - 1}.msgpack")
-        if epoch > 0 and os.path.exists(prev):
-            os.unlink(prev)
+        # The metrics are global, so every rank decides alike; rank 0
+        # writes and the others wait for it.
         metric_val = results.get(config.best_checkpoint_metric, 0.0)
-        if metric_val > best_metric:
+        is_best = metric_val > best_metric
+        if dp.rank == 0:
+            save_checkpoint(
+                os.path.join(ckpt_dir, f"ckpt-{epoch}.msgpack"),
+                state, example_info,
+            )
+            # Keep only the latest epoch checkpoint plus best.msgpack
+            # (the reference's CheckpointManager max_to_keep analog);
+            # a full InceptionV3 state is ~260 MB per epoch otherwise.
+            prev = os.path.join(ckpt_dir, f"ckpt-{epoch - 1}.msgpack")
+            if epoch > 0 and os.path.exists(prev):
+                os.unlink(prev)
+            if is_best:
+                shutil.copyfile(
+                    os.path.join(ckpt_dir, f"ckpt-{epoch}.msgpack"),
+                    os.path.join(ckpt_dir, "best.msgpack"),
+                )
+        dp.barrier()
+        if is_best:
             best_metric = metric_val
             patience = 0
-            shutil.copyfile(
-                os.path.join(ckpt_dir, f"ckpt-{epoch}.msgpack"),
-                os.path.join(ckpt_dir, "best.msgpack"),
-            )
         else:
             patience += 1
             if patience >= config.early_stopping_patience:

@@ -17,9 +17,8 @@ from deepvariant_tpu.io.tfrecord import TFRecordWriter
 from deepvariant_tpu.models.inception_v3 import ConvBN as JaxConvBN
 from deepvariant_tpu_torch.models import inception_v3 as iv3
 from deepvariant_tpu_torch.models.checkpoint import state_to_flax
+from torch_twin_util import TWIN_FEATURES, TWIN_SHAPE, TorchTwin  # noqa: F401
 
-TWIN_SHAPE = (17, 23, 7)
-TWIN_FEATURES = 8
 
 
 class JaxTwin(nn.Module):
@@ -40,31 +39,6 @@ class JaxTwin(nn.Module):
         x = nn.Dropout(self.dropout_rate, deterministic=not train)(x)
         logits = nn.Dense(3, name="classification")(x)
         return jax.nn.softmax(logits, axis=-1)
-
-
-class TorchTwin(torch.nn.Module):
-    """The port's twin of `JaxTwin`, with the same parameter names."""
-
-    def __init__(self, channels: int = TWIN_SHAPE[2],
-                 dropout_rate: float = 0.0, bn_momentum: float = 0.9,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.stem = iv3.ConvBN(channels, TWIN_FEATURES, (3, 3), 4, "VALID")
-        self.stem.bn.momentum = bn_momentum
-        self.classification = torch.nn.Linear(TWIN_FEATURES, 3)
-        self.dropout_rate = dropout_rate
-        self.dtype = dtype
-
-    @property
-    def compute_dtype(self):
-        return self.dtype
-
-    def forward(self, x, generator=None):
-        x = self.stem(x.to(self.dtype).permute(0, 3, 1, 2))
-        h = x.mean(dim=(2, 3), dtype=torch.float32).to(x.dtype).float()
-        if self.training and self.dropout_rate > 0:
-            h = iv3.dropout(h, self.dropout_rate, generator)
-        return torch.softmax(self.classification(h), dim=-1)
 
 
 def twin_variables(seed: int = 0):
