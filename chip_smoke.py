@@ -237,7 +237,7 @@ Phases:
  16. Multi-sample make_examples and the one-step product scripts, on
      a seeded family, tumour/normal pair and read set with a 16-haplotype
      panel (`synthetic.synthetic_family`, `synthetic_tumor_normal`,
-     `synthetic_pangenome`; 10 kb each, a variant every 400-500 bases, a
+     `synthetic_pangenome`; 6 kb each, a variant every 400-500 bases, a
      seeded checkpoint written to disk): `run_deeptrio` (child and both
      parents, 40/60/40 rows: 140x221x7), `run_deepsomatic` on the pair
      with a panel of normals and on the tumour alone (200x221x7 and
@@ -259,8 +259,8 @@ Phases:
  17. Simulate, train, call, score: the port's read simulators fit their
      error models to seeded templates (a 30x short-read sample over 60
      kb, a long-read sample over 16 kb, written with the port's writers)
-     and write five corpora with their truth VCFs and BEDs: a 20 kb
-     training corpus, a 10 kb held-out corpus (another window and seed),
+     and write five corpora with their truth VCFs and BEDs: a 9 kb
+     training corpus, a 5 kb held-out corpus (another window and seed),
      and 10 kb each of long reads, a trio and a tumour/normal pair,
      printing variants, reads and seconds. (B) run_oracle_inference on the
      held-out corpus, scored by the port's vcf_eval against its truth
@@ -309,7 +309,27 @@ Phases:
      line says so (`expected_launches` 0). (E) a PlanPredictor with two
      replicas against one (a comparison, not counted). The machine has
      one card: no multi-card speed is measured.
- 19. One JSON line per the kernels, the card's name and power limit, and
+ 19. The nine accuracy drivers (scripts/accuracy_*.py and
+     resume_somatic_eval), each through its `main(argv)` with `--device
+     cuda`, on seeded stand-ins of the reference's data
+     (testing/accuracy_inputs.py: templates, two short-read runs, a
+     long-read run and a family simulated on one 32 kb reference, and
+     windows of a few kb): accuracy_sim, accuracy_longread --family
+     pacbio, accuracy_trio, accuracy_somatic and accuracy_hybrid stage by
+     stage (gen, train, eval: simulate, label in ACC_WORKERS processes,
+     one epoch of train_resident at batch ACC_BATCH, call on the card,
+     stage 3, vcf_eval, the oracle and the fn audit), resume_somatic_eval
+     on the somatic run (its JSON must equal the eval's), then
+     accuracy_chr20 --cross_eval, accuracy_ont and accuracy_deeptrio
+     with 2 folds (the streaming trainer). Prints each driver's stage
+     seconds, labeled examples, model F1 and the oracle's F1 where the
+     driver computes one; accuracy_sim's oracle must reach
+     SIM_ORACLE_MIN_F1. The drivers paint on the host (0 launches,
+     checked); the plan form then paints the plans of accuracy_sim's
+     held-out calling examples (the runner in this process with the
+     driver's options, whose examples equal the driver's byte for byte):
+     every image equal to the driver's, bit for bit, and timed.
+ 20. One JSON line per the kernels, the card's name and power limit, and
      the result line.
 
 The launch counts are set to 0 just before phases 3 and 4 (the WGS
@@ -326,8 +346,11 @@ run, and in phase 16 around the painting of the three DeepTrio targets'
 planes (the multi-sample path paints on the host, as in the JAX
 package: this is the smoke's check of the plan form on trio planes, not
 a path of the package), and in phase 17 around the held-out and the
-long-read `--stream` runs (their sum is the entry's launches), and
-in phase 18 around (A)-(D), which must count 0; the
+long-read `--stream` runs (their sum is the entry's launches),
+in phase 18 around (A)-(D), which must count 0, and in phase 19 around
+the nine drivers' runs (they paint on the host: they must count 0) and
+then around the painting of accuracy_sim's held-out plans (the entry's
+launches); the
 comparisons of phase 2 and of the checks after the paths are not
 counted. Any failed check raises, and the script exits non-zero; it also
 exits non-zero, printing no result, when no CUDA card is available.
@@ -496,10 +519,10 @@ S2D_ATOL = 1e-4                # folded + padded + s2d vs plain, float32
 PAINT_OPS_PER_PIXEL = 10         # min, mul, div (quality) + 7 mask muls
 
 # Phase 16: the seeded family, tumour/normal pair and pangenome panel,
-# 10 kb each with a variant every 400-500 bases (the one-step scripts run
+# 6 kb each with a variant every 400-500 bases (the one-step scripts run
 # the realigner, whose windows then assemble), and the WGS channels they
 # set.
-MULTISAMPLE_CONTIGS = (("chr1", 10_000),)
+MULTISAMPLE_CONTIGS = (("chr1", 6_000),)
 MULTISAMPLE_SPACING = 400
 MULTISAMPLE_CHANNELS = 7
 F32_CARD_CPU_ATOL = 1e-4       # float32 CVOs, the card (TF32 off) vs the CPU
@@ -511,8 +534,8 @@ SIM_CONTIG = "chr20"
 SIM_TEMPLATE_LENGTH = 60_000
 SIM_LONG_TEMPLATE_LENGTH = 16_000
 SIM_CORPORA = {
-    "train": ("short", dict(seed=1, windows=[(5_000, 25_000)])),
-    "heldout": ("short", dict(seed=2, windows=[(35_000, 45_000)])),
+    "train": ("short", dict(seed=1, windows=[(5_000, 14_000)])),
+    "heldout": ("short", dict(seed=2, windows=[(35_000, 40_000)])),
     "long": ("long", dict(seed=3, windows=[(2_000, 12_000)])),
     # De novo and somatic rates raised so that 10 kb hold a few of each;
     # depths lowered for the drivers' host time (below).
@@ -528,7 +551,7 @@ SIM_CORPORA = {
 # realigner (no flag turns it off), whose host time grows with the
 # simulated error process: they call, and are scored over, the first
 # SIM_DRIVER_SPAN bases of their corpus's window.
-SIM_DRIVER_SPAN = {"trio": 5_000, "pair": 3_000}
+SIM_DRIVER_SPAN = {"trio": 2_500, "pair": 1_500}
 SIM_ORACLE_MIN_F1 = 0.9        # the oracle's F1 on the held-out corpus
 SIM_SHARDS = 4                 # make_examples shards (processes) per run
 SIM_PLAN_SPAN = 1_500          # the held-out plans held against the plain
@@ -566,6 +589,14 @@ MULTI_GPU_REGIONS = ("chr1:1-4000", "chr1:4001-8000", "chr2:1-2000",
 MULTI_GPU_PROB_ATOL = 1e-5     # float32 probabilities, parts against whole
 MULTI_GPU_EXAMPLES = 1100      # (D): three batches of 512, the last padded
 MULTI_GPU_RANK_TIMEOUT_S = 600
+# Phase 19: the nine accuracy drivers on the seeded stand-ins of
+# testing/accuracy_inputs.py (windows of a few kb), through their
+# main(argv) on the card: one epoch at batch ACC_BATCH (a few steps of
+# the full-width InceptionV3), ACC_WORKERS make_examples processes, and
+# accuracy_sim's eval over 3 kb of the stand-in runs' 4 kb window.
+ACC_BATCH = 4
+ACC_WORKERS = 4
+ACC_EVAL_SPAN = (6_000, 9_000)
 
 
 def nvidia_smi() -> str:
@@ -5528,6 +5559,221 @@ def phase_multi_gpu(tmp: str, device, card: str, paint_entry: dict):
     return numbers, entry
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the accuracy drivers
+# ---------------------------------------------------------------------------
+
+def run_driver(name: str, argv, tag: str):
+    """A driver's `main(argv)` in this process; its lines printed under
+    `tag` (the epochs' and the JSON ones left out, the rest cut to 200
+    characters). Returns (the JSON of its last JSON line or None, its
+    seconds)."""
+    import importlib
+
+    mod = importlib.import_module(f"deepvariant_tpu_torch.scripts.{name}")
+    buf = io.StringIO()
+    start = time.time()
+    with contextlib.redirect_stdout(buf):
+        mod.main(list(argv))
+    seconds = time.time() - start
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        if not line.startswith(("{", "epoch ")):
+            print(f"[{tag}] {line[:200]}")
+    found = [line for line in lines if line.startswith("{")]
+    return (json.loads(found[-1]) if found else None), seconds
+
+
+def f1_of(metrics) -> float:
+    """The F1 of all variants of a vcf_eval result, which must lie in
+    [0, 1]."""
+    f1 = float(metrics["all"]["f1"])
+    if not 0.0 <= f1 <= 1.0:
+        raise AssertionError(f"an F1 of {f1!r}")
+    return f1
+
+
+def accuracy_plan_entry(sim_dir: str, src: dict, span, device, tag: str,
+                        card: str) -> dict:
+    """The plan form on accuracy_sim's held-out calling examples of
+    `src` over `span`: the runner in this process with the driver's
+    options gives the same examples and, beside them, their plans; every
+    image the plan form paints equals the driver's, bit for bit. Returns
+    the kernels-line entry, its launches those of that painting."""
+    from deepvariant_tpu_torch.calling.plan_predictor import PlanPredictor
+    from deepvariant_tpu_torch.make_examples.core import MakeExamplesOptions
+    from deepvariant_tpu_torch.models.checkpoint import (
+        load_variables_for_examples,
+    )
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+
+    lo, hi = span
+    calling = os.path.join(sim_dir, f"eval_{src['label']}",
+                           "calling.tfrecord.gz")
+    beside = os.path.join(sim_dir, "beside")
+    os.makedirs(beside)
+    options = MakeExamplesOptions(
+        reads_filename=src["reads"], ref_filename=src["ref"],
+        examples_filename=os.path.join(beside, "calling.tfrecord.gz"),
+        mode="calling", regions=[f"{src['contig']}:{lo}-{hi}"],
+        realigner_enabled=True)
+    records, plans, _, _ = examples_beside_plans(options, tag, card)
+    if records != example_records(calling):
+        raise AssertionError(f"{tag}: the runner's examples differ from the "
+                             "driver's")
+    ckpt = os.path.join(sim_dir, "experiment", "checkpoints",
+                        "final.msgpack")
+    model, _ = load_variables_for_examples(ckpt, calling, device=device)
+    predictor = PlanPredictor(model, options.pileup_options,
+                              batch_size=BATCH, device=device)
+    pp.paint_pileup.launches = 0
+    check_host_images(predictor, records, plans, tag)
+    launches = pp.paint_pileup.launches
+    entry = from_files_entry("pileup_paint_plan_accuracy", predictor,
+                             [p.plan for p in plans], tag, card)
+    entry["launches"] = launches
+    print(f"[{tag}] the plan form launched {launches} times painting "
+          f"{len(plans)} held-out plans of accuracy_sim; {card}")
+    return entry
+
+
+def phase_accuracy_drivers(tmp: str, device, card: str):
+    """Phase 19: the nine accuracy drivers on the card. Returns (numbers,
+    the kernels-line entry of the plan form on accuracy_sim's held-out
+    plans)."""
+    from deepvariant_tpu_torch.ops import pileup_paint as pp
+    from deepvariant_tpu_torch.scripts import accuracy_sim
+    from deepvariant_tpu_torch.testing import accuracy_inputs
+    from deepvariant_tpu_torch.training import train as train_lib
+
+    phase_start = time.time()
+    tag = "acc"
+    directory = os.path.join(tmp, "accuracy")
+    start = time.time()
+    inputs = accuracy_inputs.write_inputs(os.path.join(directory, "inputs"))
+    constants = accuracy_inputs.driver_constants(inputs)
+    numbers = {"inputs_s": time.time() - start}
+    print(f"[{tag}] seeded stand-ins (templates, two short-read runs, a "
+          f"long-read run, a family) in {numbers['inputs_s']:.2f} s")
+
+    def work(label):
+        return os.path.join(directory, label)
+
+    def counts_of(label):
+        with open(os.path.join(work(label), "corpus_counts.json")) as f:
+            return json.load(f)
+
+    common = ["--num_workers", str(ACC_WORKERS), "--batch_size",
+              str(ACC_BATCH), "--num_epochs", "1", "--device", device.type]
+    lo, hi = ACC_EVAL_SPAN
+    staged = (
+        ("sim", "accuracy_sim", ["--seeds", "101", "--coverage", "30",
+                                 "--eval_span", f"{lo}-{hi}"]),
+        ("longread", "accuracy_longread", ["--family", "pacbio",
+                                           "--seeds", "101"]),
+        ("trio", "accuracy_trio", ["--seeds", "501"]),
+        ("somatic", "accuracy_somatic", ["--seeds", "601"]),
+        ("hybrid", "accuracy_hybrid", ["--seeds", "701"]),
+    )
+    cross = (
+        ("chr20", "accuracy_chr20", ["--cross_eval", "--report",
+                                     os.path.join(directory, "chr20.md")]),
+        ("ont", "accuracy_ont", ["--n_folds", "2"]),
+        ("deeptrio", "accuracy_deeptrio", ["--n_folds", "2"]),
+    )
+    # Each driver's work directory goes when its numbers are taken (the
+    # full-width checkpoints are 0.1-0.3 GB each).
+    entry, driver_launches = None, 0
+    with accuracy_inputs.patched(constants):
+        for label, name, flags in staged:
+            pp.paint_pileup.launches = 0
+            seconds, outs = {}, {}
+            for stage in ("gen", "train", "eval"):
+                outs[stage], seconds[stage] = run_driver(name, [
+                    "--workdir", work(label), "--stages", stage] + common +
+                    flags, f"{tag} {label} {stage}")
+            out = outs["eval"]
+            if label == "longread":
+                labeled = outs["gen"]["corpus"]["train"]
+                model, oracle = (out["eval"]["model_confident"],
+                                 out["eval"]["oracle_confident"])
+            else:
+                labeled = counts_of(label)["train"]
+                model, oracle = out["model"], out.get("oracle")
+            numbers[label] = dict(
+                stage_s=seconds, labeled_examples=labeled,
+                model_f1=f1_of(model),
+                oracle_f1=f1_of(oracle) if oracle else None)
+            driver_launches += pp.paint_pileup.launches
+            if label == "sim":
+                entry = accuracy_plan_entry(
+                    work(label), constants["accuracy_sim"]["EVAL_SOURCES"][0],
+                    ACC_EVAL_SPAN, device, tag, card)
+            if label == "somatic":
+                somatic_eval = out
+            else:
+                shutil.rmtree(work(label))
+        pp.paint_pileup.launches = 0
+        out, seconds = run_driver("resume_somatic_eval", [
+            "--workdir", work("somatic"), "--batch_size", str(ACC_BATCH),
+            "--device", device.type, "--report",
+            os.path.join(directory, "resumed.json")], f"{tag} resume")
+        driver_launches += pp.paint_pileup.launches
+        if out != somatic_eval:
+            raise AssertionError(f"{tag}: resume_somatic_eval's JSON differs "
+                                 "from accuracy_somatic's eval")
+        numbers["resume_somatic"] = dict(seconds=seconds,
+                                         model_f1=f1_of(out["model"]))
+        shutil.rmtree(work("somatic"))
+        for label, name, flags in cross:
+            pp.paint_pileup.launches = 0
+            tally = {}
+            restore = [wrap(train_lib, "train", tally, "train"),
+                       wrap(accuracy_sim, "call_checkpoint", tally, "call")]
+            try:
+                out, seconds = run_driver(name, [
+                    "--workdir", work(label), "--batch_size", str(ACC_BATCH),
+                    "--num_epochs", "1", "--device", device.type] + flags,
+                    f"{tag} {label}")
+            finally:
+                for undo in restore:
+                    undo()
+            if len(out["folds"]) != 2:
+                raise AssertionError(f"{tag} {label}: {len(out['folds'])} "
+                                     "folds")
+            numbers[label] = dict(
+                stage_s={"stage1": seconds - tally["train_s"] -
+                         tally["call_s"], "train": tally["train_s"],
+                         "call": tally["call_s"], "all": seconds},
+                labeled_examples=out["train_examples"],
+                model_f1=f1_of(out["metrics"]), oracle_f1=None)
+            driver_launches += pp.paint_pileup.launches
+            shutil.rmtree(work(label))
+    entry["driver_launches"] = driver_launches
+    if driver_launches:
+        raise AssertionError(f"{tag}: the drivers, which paint on the host, "
+                             f"launched the plan form {driver_launches} "
+                             "times")
+    for label, n in numbers.items():
+        if not isinstance(n, dict) or "stage_s" not in n:
+            continue
+        stages = ", ".join(f"{k} {v:.1f} s" for k, v in n["stage_s"].items())
+        oracle = (f", oracle F1 {n['oracle_f1']:.4f}"
+                  if n["oracle_f1"] is not None else "")
+        print(f"[{tag}] {label}: {stages}; {n['labeled_examples']} labeled "
+              f"examples; model F1 {n['model_f1']:.4f}{oracle}; {card}")
+    if numbers["sim"]["oracle_f1"] < SIM_ORACLE_MIN_F1:
+        raise AssertionError(
+            f"{tag}: accuracy_sim's oracle F1 {numbers['sim']['oracle_f1']:.4f}"
+            f" is below {SIM_ORACLE_MIN_F1}")
+
+    numbers["phase19_s"] = time.time() - phase_start
+    print(f"[{tag}] phase 19 {numbers['phase19_s']:.1f} s; the plan form "
+          f"launched {entry['launches']} times on accuracy_sim's held-out "
+          f"plans, 0 times in the drivers; {card}")
+    return numbers, entry
+
+
 def vcf_lines(text: bytes) -> list:
     return [line for line in text.split(b"\n")
             if line and not line.startswith(b"#")]
@@ -5654,6 +5900,12 @@ def main() -> int:
             tmp, device, card, wgs_kernel)
         summary["multi_gpu"] = multi_numbers
         kernels.append(multi_kernel)
+        # The nine accuracy drivers on seeded stand-ins, and the plan
+        # form on accuracy_sim's held-out plans.
+        accuracy_numbers, accuracy_kernel = phase_accuracy_drivers(
+            tmp, device, card)
+        summary["accuracy"] = accuracy_numbers
+        kernels.append(accuracy_kernel)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)

@@ -45,16 +45,21 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "postprocess.multiallelic_model", "postprocess.pipeline",
     "realign.config", "realign.debruijn_graph", "realign.fast_pass_aligner",
     "realign.realigner", "realign.ssw", "realign.window_selector",
+    "scripts.accuracy_chr20", "scripts.accuracy_deeptrio",
+    "scripts.accuracy_hybrid", "scripts.accuracy_longread",
+    "scripts.accuracy_ont", "scripts.accuracy_sim",
+    "scripts.accuracy_somatic", "scripts.accuracy_trio",
     "scripts.call_variants", "scripts.export_model",
     "scripts.import_keras_model", "scripts.make_examples",
     "scripts.multisample_make_examples",
-    "scripts.postprocess_variants", "scripts.run_deepsomatic",
+    "scripts.postprocess_variants", "scripts.resume_somatic_eval",
+    "scripts.run_deepsomatic",
     "scripts.run_deeptrio", "scripts.run_deepvariant",
     "scripts.run_pangenome_aware_deepvariant",
     "scripts.run_oracle_inference", "scripts.train",
     "scripts.train_small_model",
     "small_model.features", "small_model.model", "small_model.train",
-    "testing.cram_writer", "testing.synthetic",
+    "testing.accuracy_inputs", "testing.cram_writer", "testing.synthetic",
     "tools.dashboard", "tools.fn_audit", "tools.preprocess_truth",
     "tools.print_f1", "tools.runtime_by_region_vis", "tools.show_examples",
     "tools.shuffle_tfrecords", "tools.vcf_eval", "tools.vcf_stats",
@@ -126,8 +131,10 @@ print("clean")
 """ % (MODULES, FORBIDDEN)
 
 
-def test_port_runs_without_importing_jax():
-    env = dict(os.environ, PYTHONPATH=REPO)
+def test_port_runs_without_importing_jax(tmp_path):
+    # The script's temporary files (a full-width checkpoint, 0.5 GB) go
+    # under tmp_path, which pytest removes with its old base directories.
+    env = dict(os.environ, PYTHONPATH=REPO, TMPDIR=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
                          env=env, capture_output=True, text=True,
                          timeout=300)
@@ -175,7 +182,8 @@ def test_stream_worker_runs_without_jax(tmp_path):
         pkg.mkdir()
         (pkg / "__init__.py").write_text(
             f"raise ImportError('the port must not import {name}')\n")
-    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}",
+               TMPDIR=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", _STREAM_SCRIPT],
                          cwd=str(tmp_path), env=env, capture_output=True, text=True,
                          timeout=300)
@@ -220,7 +228,8 @@ def test_cram_training_run_without_jax(tmp_path):
         pkg.mkdir()
         (pkg / "__init__.py").write_text(
             f"raise ImportError('the port must not import {name}')\n")
-    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}",
+               TMPDIR=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", _TRAINING_SCRIPT],
                          cwd=str(tmp_path), env=env, capture_output=True,
                          text=True, timeout=300)
@@ -264,7 +273,8 @@ def test_simulate_and_score_without_jax(tmp_path):
         pkg.mkdir()
         (pkg / "__init__.py").write_text(
             f"raise ImportError('the port must not import {name}')\n")
-    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}",
+               TMPDIR=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", _SIMULATE_SCRIPT],
                          cwd=str(tmp_path), env=env, capture_output=True,
                          text=True, timeout=300)
@@ -274,7 +284,10 @@ def test_simulate_and_score_without_jax(tmp_path):
 
 @pytest.mark.parametrize("script", [
     "make_examples", "run_deepvariant", "train", "train_small_model",
-    "run_oracle_inference", "export_model", "import_keras_model"])
+    "run_oracle_inference", "export_model", "import_keras_model",
+    "accuracy_sim", "accuracy_trio", "accuracy_somatic",
+    "resume_somatic_eval", "accuracy_hybrid", "accuracy_longread",
+    "accuracy_chr20", "accuracy_ont", "accuracy_deeptrio"])
 def test_clis_answer_help_without_jax(script, tmp_path):
     """`python -m deepvariant_tpu_torch.scripts.<script> --help` with the
     forbidden packages made unimportable (stand-ins that raise on import
@@ -284,7 +297,8 @@ def test_clis_answer_help_without_jax(script, tmp_path):
         pkg.mkdir()
         (pkg / "__init__.py").write_text(
             f"raise ImportError('the port must not import {name}')\n")
-    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}")
+    env = dict(os.environ, PYTHONPATH=f"{tmp_path}{os.pathsep}{REPO}",
+               TMPDIR=str(tmp_path))
     out = subprocess.run(
         [sys.executable, "-m", f"deepvariant_tpu_torch.scripts.{script}",
          "--help"], cwd=str(tmp_path), env=env, capture_output=True,
@@ -293,15 +307,38 @@ def test_clis_answer_help_without_jax(script, tmp_path):
     assert out.stdout.startswith(f"usage: {script}")
 
 
-def _imports(path):
-    with open(path) as f:
-        tree = ast.parse(f.read(), path)
+def _tree_imports(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+
+
+def _code_strings(tree):
+    """The string constants of a module that are Python source with an
+    import in it: the code a module hands to `python -c` (the accuracy
+    drivers' make_examples workers, chip_smoke's child processes)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and "import" in node.value:
+            try:
+                code = ast.parse(node.value)
+            except SyntaxError:
+                continue
+            if any(True for _ in _tree_imports(code)):
+                yield code
+
+
+def _imports(path):
+    """Every module `path` imports, in its own code and in the code it
+    passes to child Pythons as strings."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    yield from _tree_imports(tree)
+    for code in _code_strings(tree):
+        yield from _tree_imports(code)
 
 
 def test_module_list_is_complete():
@@ -317,3 +354,25 @@ def test_no_source_file_names_a_forbidden_module(module):
     path = os.path.join(REPO, *module.split(".")) + ".py"
     for name in _imports(path):
         assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+@pytest.mark.parametrize("module,name", [
+    ("scripts.accuracy_sim", "_WORKER_CODE"),
+    ("scripts.accuracy_trio", "_MULTI_WORKER_CODE")])
+def test_worker_strings_are_scanned(module, name):
+    """The drivers' `python -c` worker code imports the port, and the
+    scan sees it: the same code importing the JAX package fails it."""
+    import importlib
+
+    code = getattr(importlib.import_module(
+        "deepvariant_tpu_torch." + module), name)
+    assert "deepvariant_tpu_torch.make_examples" in code
+    path = os.path.join(REPO, "deepvariant_tpu_torch",
+                        *module.split(".")) + ".py"
+    names = set(_imports(path))
+    assert "deepvariant_tpu_torch.make_examples.core" in names
+    bad = code.replace("deepvariant_tpu_torch.", "deepvariant_tpu.")
+    tree = ast.parse(f"{name} = {bad!r}\n")
+    found = {n for c in _code_strings(tree) for n in _tree_imports(c)}
+    assert "deepvariant_tpu.make_examples.core" in found
+    assert any(n.split(".")[0] in FORBIDDEN for n in found)
