@@ -3434,14 +3434,19 @@ def profile_train_steps(data: dict, device, card: str, steps: int = 3
             state, loss, _ = step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
+    # The port's spans (`utils/trace.py`) are on under the profiler, and
+    # their ranges come back as device events too: kernels only.
     events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
     if not events:
         print(f"[train profile] the profiler returned no device records; "
               f"{card}")
         return {"train_profile_wall_ms": wall_ms}
-    by_op = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
+    by_op = sorted((a for a in prof.key_averages()
+                    if not getattr(a, "is_user_annotation", False)),
+                   key=lambda a: -a.self_device_time_total)
     top = [(a.key[:60], a.self_device_time_total / 1e3 / steps)
            for a in by_op[:10] if a.self_device_time_total > 0]
     print(f"[train profile] bfloat16 x1, {steps} steps: wall "

@@ -73,6 +73,7 @@ from deepvariant_tpu_torch.parallel.distribute import (
 from deepvariant_tpu_torch.training import metrics as metrics_lib
 from deepvariant_tpu_torch.training.config import TrainConfig
 from deepvariant_tpu_torch.training.data import Batch, DatasetConfig, input_fn
+from deepvariant_tpu_torch.utils import trace
 
 NUM_CLASSES = 3
 INT32_MAX = np.iinfo(np.int32).max
@@ -335,7 +336,13 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
     of the global batch (`DataParallel.local_batch` with the same
     accumulation), and the step returns on every rank what the one-rank
     step returns for the global batch: the new replicated state, the
-    global loss and the global confusion matrices."""
+    global loss and the global confusion matrices.
+
+    Its phases are `utils.trace` spans: `train.step` (the state's step
+    is its identifier) around `train.forward` (the pileup's
+    normalization through the loss and L2 penalty) and `train.backward`
+    (`torch.autograd.grad`), once per micro-batch, and `train.update`
+    (the optimizer, `apply_updates` and the EMA)."""
     accum = max(int(getattr(
         config, "gradient_accumulation_steps", 1) or 1), 1)
     dp = data_parallel if data_parallel is not None and \
@@ -344,32 +351,38 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
 
     def micro_grad(params, batch_stats, micro_batch, generator,
                    weight_total):
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
-        x = normalize_pileup(micro_batch["images"], model.compute_dtype)
-        probs = functional_call(model, {**leaves, **batch_stats}, (x,),
-                                {"generator": generator})
-        data = loss_fn(
-            probs,
-            micro_batch["labels"],
-            micro_batch["sample_weights"],
-            config.label_smoothing,
-            weight_total,
-        )
-        penalty = _l2_kernel_penalty(leaves, config.weight_decay)
-        # Over ranks the penalty enters the gradient sum once.
-        objective = data + penalty if rank == 0 else data
-        grads = torch.autograd.grad(objective, list(leaves.values()))
+        with trace.span("train.forward"):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            x = normalize_pileup(micro_batch["images"], model.compute_dtype)
+            probs = functional_call(model, {**leaves, **batch_stats}, (x,),
+                                    {"generator": generator})
+            data = loss_fn(
+                probs,
+                micro_batch["labels"],
+                micro_batch["sample_weights"],
+                config.label_smoothing,
+                weight_total,
+            )
+            penalty = _l2_kernel_penalty(leaves, config.weight_decay)
+            # Over ranks the penalty enters the gradient sum once.
+            objective = data + penalty if rank == 0 else data
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(objective, list(leaves.values()))
         if torch.is_tensor(penalty):
             penalty = penalty.detach()
         return (data.detach(), penalty, probs.detach(),
                 dict(zip(leaves, grads)))
 
     def train_step(state: dict, batch: Dict[str, torch.Tensor]):
+        step = int(state["step"])
+        with trace.span("train.step", step):
+            return apply_step(state, batch, step)
+
+    def apply_step(state, batch, step):
         model.train()
         params = state["params"]
         device = next(iter(params.values())).device
-        step = int(state["step"])
         batch_stats = {k: v.clone() for k, v in state["batch_stats"].items()}
         size = batch["labels"].shape[0] // accum
         micros = [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
@@ -411,18 +424,20 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
             grads = dict(zip(keys, torch._foreach_mul(
                 _values(grad_sum, keys), inv)))
             loss = loss * inv
-        updates, new_opt_state = tx.update(grads, state["opt_state"], params)
-        new_params = apply_updates(params, updates)
-        if config.use_ema:
-            keys = _keys(new_params)
-            decay = config.ema_momentum
-            new_ema = dict(zip(keys, torch._foreach_add(
-                torch._foreach_mul(_values(state["ema_params"], keys),
-                                   decay),
-                torch._foreach_mul(_values(new_params, keys),
-                                   1.0 - decay))))
-        else:
-            new_ema = new_params
+        with trace.span("train.update"):
+            updates, new_opt_state = tx.update(grads, state["opt_state"],
+                                               params)
+            new_params = apply_updates(params, updates)
+            if config.use_ema:
+                keys = _keys(new_params)
+                decay = config.ema_momentum
+                new_ema = dict(zip(keys, torch._foreach_add(
+                    torch._foreach_mul(_values(state["ema_params"], keys),
+                                       decay),
+                    torch._foreach_mul(_values(new_params, keys),
+                                       1.0 - decay))))
+            else:
+                new_ema = new_params
         new_state = {
             "params": new_params,
             "batch_stats": batch_stats,

@@ -68,7 +68,7 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "training.simulate", "training.simulate_family",
     "training.simulate_longread",
     "training.train", "training.train_resident",
-    "utils.resources",
+    "utils.resources", "utils.trace",
 ))
 
 _SCRIPT = r"""
