@@ -22,7 +22,14 @@ Phases:
      call is one kernel: the wrapper counts one launch and the allocator
      one tensor (the output, no temporary), and where torch.profiler
      delivers device records, they name the paint kernel and nothing
-     else.
+     else. Then the training batch norm + ReLU kernels
+     (`phase_batch_norm_relu`) at batch 2,048 (bfloat16) at every
+     distinct layer shape of each preset's 94: their output, running
+     statistics and gradients against the plain version, and forward +
+     backward timed for the three largest layers and the sum over all
+     94, beside the 16-byte-an-element bound, the plain version and
+     torch's own batch_norm + relu (`library_ms`, which the port never
+     calls). Their launches are counted on the train step in phase 14.
   3. Staged call_variants: write synthetic 100x221x7 WGS examples and a
      seeded checkpoint with the port's own writers, run the CLI
      (`deepvariant_tpu_torch.scripts.call_variants.main`) on the card at
@@ -197,7 +204,10 @@ Phases:
      counted from the conv shapes; once more in bfloat16 with cuDNN's
      autotuner on (the port leaves it off); then torch.profiler over
      three bfloat16 steps: the device's busy share and the ops that take
-     its time. The paint kernel must not be launched in phase 14.
+     its time. The paint kernel must not be launched in phase 14; the
+     batch norm + ReLU kernels launch 4 times a layer in every timed
+     step's micro-batches, 94 layers each (the count at batch TRAIN_BATCH
+     x 4 goes on their entries of the kernels line).
  15. The small model, run_oracle_inference, the Keras import, export and
      stem rewrites, on phase 11's sample with phase 13's truth VCF and
      BED (rewritten from the same seed) and phase 14's checkpoint.
@@ -471,6 +481,17 @@ METH_CHANNEL_LIST = ("BASE_CHANNELS,haplotype,supplementary_alignment,"
 METH_SHAPE = (100, 147, 12)
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
+# The batch norm + ReLU kernels against the plain version at batch 2,048
+# in bfloat16, relative L2 distance (the order is that of the outputs
+# compared). At the largest layer of each preset the card read at most
+# y 9.2e-5, dx 8.1e-5, dbias 1.8e-7, the running statistics 1.3e-7.
+BN_LIMITS = {"y": 4e-3, "dx": 8e-3, "dbias": 1e-4, "running_mean": 1e-6,
+             "running_var": 1e-6}
+# Where the two versions' ReLU gates differ: at most this share of the
+# elements, each with its float64 pre-activation within BN_GATE_MARGIN of
+# 0 (as tests/test_torch_batch_norm_relu.py holds bfloat16).
+BN_GATE_SHARE = 1e-3
+BN_GATE_MARGIN = 1e-4
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
 # Phase 14: training on the card.
 TRAIN_CLI_BATCH = 8            # the CLI and train_resident on phase 13's
@@ -893,6 +914,187 @@ def phase_paint_kernel(device) -> list:
         entry("pileup_paint_plan_from_files", ("wgs", "plan"),
               image_fill_ms=timed["wgs", "fill"]),
     ]
+
+
+def network_layers(shape) -> list:
+    """[(C, H, W, count)] of the outputs of InceptionV3's 94 ConvBNs at
+    an (H, W, C) pileup, largest first (a forward on the CPU)."""
+    import torch
+
+    from deepvariant_tpu_torch.models.inception_v3 import ConvBN, InceptionV3
+
+    model = InceptionV3(shape[2]).eval()
+    seen = []
+    for m in model.modules():
+        if isinstance(m, ConvBN):
+            m.register_forward_hook(
+                lambda mod, inp, out: seen.append(tuple(out.shape[1:])))
+    with torch.no_grad():
+        model(torch.zeros((1,) + tuple(shape)))
+    counts = {s: seen.count(s) for s in seen}
+    return sorted(((c, h, w, k) for (c, h, w), k in counts.items()),
+                  key=lambda t: -t[0] * t[1] * t[2])
+
+
+def phase_batch_norm_relu(device, card: str) -> list:
+    """The training batch norm + ReLU kernels at the main path's shapes:
+    held to the plain version and timed at every distinct layer shape at
+    batch 2,048. Their launches on the train step are counted in phase
+    14 (`time_train_steps`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepvariant_tpu_torch.models.inception_v3 import BN_EPSILON
+    from deepvariant_tpu_torch.ops import batch_norm_relu as bnr
+
+    batch, momentum, dtype = 2048, 0.9997, torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+
+    def layer(c, h, w):
+        x = (torch.randn((batch, h, w, c), device=device, generator=gen)
+             * 1.7 + 0.4).to(dtype).permute(0, 3, 1, 2)
+        dy = torch.randn((batch, h, w, c), device=device, generator=gen
+                         ).to(dtype).permute(0, 3, 1, 2)
+        bias = torch.randn(c, device=device, generator=gen) * 0.5
+        return x, dy, bias, torch.zeros(c, device=device), \
+            torch.ones(c, device=device)
+
+    def fused(x, dy, bias, rm, rv):
+        y, mean, rstd = bnr.forward_kernel(x, bias, rm, rv, momentum,
+                                           BN_EPSILON)
+        return (y,) + bnr.backward_kernel(dy, x, bias, mean, rstd)
+
+    def plain(x, dy, bias, rm, rv):
+        x = x.detach().requires_grad_(True)
+        b = bias.detach().requires_grad_(True)
+        y = bnr.batch_norm_relu_reference(x, b, rm, rv, momentum,
+                                          BN_EPSILON)
+        return (y,) + torch.autograd.grad(y, (x, b), dy)
+
+    def library(x, dy, bias, rm, rv):
+        x = x.detach().requires_grad_(True)
+        b = bias.detach().requires_grad_(True)
+        y = F.relu(F.batch_norm(x, rm, rv, torch.ones_like(b), b, True,
+                                1 - momentum, BN_EPSILON))
+        return (y,) + torch.autograd.grad(y, (x, b), dy)
+
+    def compare(x, dy, bias, rm, rv):
+        """Relative L2 distances of the kernels' outputs, gradients and
+        running statistics from the plain version's, one step from the
+        same running statistics. A pre-activation within rounding of 0
+        may fall on either side of the ReLU's gate in the two (their
+        statistics differ in the last place, and every element of a
+        channel that holds the same bfloat16 value falls the same way),
+        so the plain version's backward takes the kernels' gate (their
+        y > 0). Also the share of elements whose gates differ and the
+        largest float64 pre-activation among them."""
+        rm_k, rv_k, rm_p, rv_p = (t.clone() for t in (rm, rv, rm, rv))
+        y, dx, dbias = fused(x, dy, bias, rm_k, rv_k)
+        xp = x.detach().requires_grad_(True)
+        bp = bias.detach().requires_grad_(True)
+        z = bnr.batch_norm_train_reference(xp, bp, rm_p, rv_p, momentum,
+                                           BN_EPSILON)
+        gate = y > 0
+        dxp, dbp = torch.autograd.grad(z, (xp, bp), dy * gate)
+        z = z.detach()
+        rel = {k: float((a.double() - b.double()).norm()
+                        / b.double().norm())
+               for k, a, b in zip(BN_LIMITS, (y, dx, dbias, rm_k, rv_k),
+                                  (F.relu(z), dxp, dbp, rm_p, rv_p))}
+        differ = gate != (z > 0)
+        rel["gate_share"] = float(differ.double().mean())
+        rel["gate_margin"] = 0.0
+        if rel["gate_share"] > 0:
+            c = x.shape[1]
+            x64 = x.double()
+            mean = x64.mean(dim=(0, 2, 3)).view(1, c, 1, 1)
+            rstd = torch.rsqrt(x64.var(dim=(0, 2, 3), unbiased=False)
+                               + BN_EPSILON).view(1, c, 1, 1)
+            pre = (x64 - mean) * rstd + bias.double().view(1, c, 1, 1)
+            rel["gate_margin"] = float(pre[differ].abs().max())
+            del x64, pre
+        return rel
+
+    entries = []
+    for preset, shape in (("wgs", SHAPE), ("pacbio", LONGREAD_SHAPE)):
+        layers = network_layers(shape)
+        totals = {"kernel": 0.0, "plain": 0.0, "library": 0.0,
+                  "forward": 0.0, "backward": 0.0, "bound": 0.0}
+        worst = {}
+        for rank, (c, h, w, count) in enumerate(layers):
+            x, dy, bias, rm, rv = layer(c, h, w)
+            rel = compare(x, dy, bias, rm, rv)
+            print(f"[bn] {preset} {batch}x{c}x{h}x{w} bf16 against the "
+                  "plain version (relative L2): " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in rel.items()) + f"; {card}")
+            if any(rel[k] > limit for k, limit in BN_LIMITS.items()) or \
+                    rel["gate_share"] > BN_GATE_SHARE or \
+                    rel["gate_margin"] > BN_GATE_MARGIN:
+                raise AssertionError(f"batch norm kernels at {preset} "
+                                     f"{batch}x{c}x{h}x{w}: {rel}")
+            worst = {k: max(worst.get(k, 0.0), v) for k, v in rel.items()}
+            reps = 20 if rank < 3 else 10
+            y, mean, rstd = bnr.forward_kernel(x, bias, rm, rv, momentum,
+                                               BN_EPSILON)
+            ms = {
+                "kernel": device_ms(lambda: fused(x, dy, bias, rm, rv),
+                                    reps),
+                "forward": device_ms(lambda: bnr.forward_kernel(
+                    x, bias, rm, rv, momentum, BN_EPSILON), reps),
+                "backward": device_ms(lambda: bnr.backward_kernel(
+                    dy, x, bias, mean, rstd), reps),
+                "plain": device_ms(lambda: plain(x, dy, bias, rm, rv),
+                                   reps),
+                "library": device_ms(lambda: library(x, dy, bias, rm, rv),
+                                     reps),
+                "bound": 16 * x.numel() / H100_BYTES_PER_S * 1e3,
+            }
+            for k in totals:
+                totals[k] += count * ms[k]
+            if rank < 3:
+                entries.append(bn_entry(
+                    f"batch_norm_relu_{preset}_{batch}x{c}x{h}x{w}", ms,
+                    count, rel))
+                print(f"[bn] {preset} {batch}x{c}x{h}x{w} (x{count}): "
+                      f"kernel {ms['kernel']:.4f} ms (forward "
+                      f"{ms['forward']:.4f}, backward {ms['backward']:.4f}),"
+                      f" bound {ms['bound']:.4f} "
+                      f"({100 * ms['bound'] / ms['kernel']:.1f}%), plain "
+                      f"{ms['plain']:.4f}, library {ms['library']:.4f}; "
+                      f"{card}")
+            del x, dy, y, mean, rstd
+        entries.append(bn_entry(f"batch_norm_relu_{preset}_{batch}_all94",
+                                totals, 94, worst))
+        print(f"[bn] {preset} all 94 layers at {batch}: kernel "
+              f"{totals['kernel']:.3f} ms a step (forward "
+              f"{totals['forward']:.3f}, backward {totals['backward']:.3f}),"
+              f" bound {totals['bound']:.3f} "
+              f"({100 * totals['bound'] / totals['kernel']:.1f}%), plain "
+              f"{totals['plain']:.3f}, library {totals['library']:.3f}; "
+              f"{card}")
+    torch.cuda.empty_cache()
+    return entries
+
+
+def bn_entry(name, ms, layers, errors) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "deepvariant_tpu_torch/csrc/batch_norm_relu.cu",
+        "replaces": None,
+        "tpu_kernel": None,
+        "launches": None,   # phase 14's train steps
+        "layers": layers,
+        "max_rel_err": errors,
+        "ms": ms["kernel"],
+        "kernel_ms": ms["kernel"],
+        "forward_ms": ms["forward"],
+        "backward_ms": ms["backward"],
+        "plain_ms": ms["plain"],
+        "bound_ms": ms["bound"],
+        "bound_by": "bytes",
+        "library_ms": ms["library"],
+    }
 
 
 def kernel_entry(name, kernel_ms, plain_ms, bound_ms, bound_by, max_err,
@@ -3353,9 +3555,12 @@ def time_train_steps(data: dict, dtype_name: str, accum: int, device,
     """ms per train step of the full InceptionV3(7) at batch
     TRAIN_BATCH x `accum` (forward, backward and update, back to back;
     CUDA events), each step's batch gathered on the card from the
-    resident examples as train_resident gathers it."""
+    resident examples as train_resident gathers it. The batch norm + ReLU
+    kernels must launch 4 times a layer, 94 layers, in every micro-batch
+    of every step."""
     import torch
 
+    from deepvariant_tpu_torch.ops import batch_norm_relu as bnr
     from deepvariant_tpu_torch.training import train as train_lib
     from deepvariant_tpu_torch.training.config import TrainConfig
 
@@ -3372,6 +3577,7 @@ def time_train_steps(data: dict, dtype_name: str, accum: int, device,
              for _ in range(steps + warmup)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    bnr.batch_norm_relu.launches = 0
     losses = []
     for idx in order[:warmup]:
         state, loss, _ = step(state, {k: v.index_select(0, idx)
@@ -3387,6 +3593,12 @@ def time_train_steps(data: dict, dtype_name: str, accum: int, device,
     end.synchronize()
     ms = start.elapsed_time(end) / steps
     peak = torch.cuda.max_memory_allocated()
+    bn_launches = bnr.batch_norm_relu.launches
+    if bn_launches != 4 * 94 * accum * (steps + warmup):
+        raise AssertionError(
+            f"train steps at {dtype_name} x{accum}: {bn_launches} batch "
+            f"norm kernel launches in {steps + warmup} steps, not 4 x 94 x "
+            f"{accum} a step")
     final_loss = float(torch.stack(losses).mean())
     if not math.isfinite(final_loss):
         raise AssertionError(f"train steps at {dtype_name} x{accum}: loss "
@@ -3398,8 +3610,10 @@ def time_train_steps(data: dict, dtype_name: str, accum: int, device,
           f"{batch / (ms / 1e3):.1f} examples/s, peak memory "
           f"{peak / 2**30:.2f} GiB, {step_flops / 1e12:.3f} TFLOP/step = "
           f"{share:.2%} of the bf16 peak; mean loss {final_loss:.4f} over "
-          f"{steps} steps; {card}")
+          f"{steps} steps; batch norm kernel launches {bn_launches} in "
+          f"{steps + warmup} steps (4 x 94 x {accum} a step); {card}")
     return {"ms_per_step": ms, "examples_per_s": batch / (ms / 1e3),
+            "bn_launches": bn_launches,
             "max_memory_allocated": peak, "bf16_peak_share": share,
             "tflop_per_step": step_flops / 1e12}
 
@@ -5803,6 +6017,7 @@ def main() -> int:
     summary = {"build_s": phase_build()}
     kernels = phase_paint_kernel(device)
     wgs_kernel, longread_kernel, stream_kernel = kernels
+    bn_kernels = phase_batch_norm_relu(device, card)
     from deepvariant_tpu_torch.make_examples.pileup import PileupOptions
     from deepvariant_tpu_torch.make_examples.presets import (
         apply_pileup_preset,
@@ -5875,7 +6090,11 @@ def main() -> int:
         # Training on the card: phase 13's labeled examples through the
         # train CLI, call_variants and train_resident; one step against
         # the CPU; ms per step at full width.
-        summary.update(phase_training(tmp, device, card, labeled))
+        training_numbers = phase_training(tmp, device, card, labeled)
+        summary.update(training_numbers)
+        for e in bn_kernels:
+            e["launches"] = \
+                training_numbers["train_timing"]["bfloat16_x4"]["bn_launches"]
         # The small model on phase 11's sample (rows, training, the gate
         # on the main path), run_oracle_inference, and the export of phase
         # 14's checkpoint, the Keras import and the stem rewrites.
@@ -5914,6 +6133,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)
+    kernels.extend(bn_kernels)
 
     for k in kernels:
         if k.get("expected_launches") == 0:

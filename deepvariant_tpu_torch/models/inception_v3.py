@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepvariant_tpu_torch.device import resolve_device
+from deepvariant_tpu_torch.ops import batch_norm_relu
 
 NUM_CLASSES = 3  # {hom-ref, het, hom-alt} (reference dv_constants.py:77)
 DEFAULT_BACKBONE_DROPOUT_RATE = 0.2  # keras_modeling.py:43
@@ -59,6 +60,9 @@ class BatchNorm(nn.Module):
     `ra = momentum * ra + (1 - momentum) * batch`. torch's own running
     update takes the unbiased variance and the other momentum, so it is
     not used: the running tensors are written here, in place.
+    `forward(x, relu=True)`, which ConvBN calls, also takes the ReLU; in
+    training mode on one device that is the one op
+    `ops.batch_norm_relu` (the hand-written kernels on the card).
 
     Under data parallelism (`sync_batch_norm`) the statistics are the
     global batch's: each rank's count, per-channel mean and sum of
@@ -109,28 +113,21 @@ class BatchNorm(nn.Module):
             + self.bias.view(1, c, 1, 1)
         return y.to(x.dtype)
 
-    def forward(self, x):
+    def forward(self, x, relu: bool = False):
         if not self.training:
-            return F.batch_norm(x, self.mean, self.var, None, self.bias,
-                                False, 0.0, BN_EPSILON)
-        if self.gather_over_ranks is not None:
-            return self._forward_synced(x)
-        with torch.no_grad():
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min(
-                xf.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
-            del xf
-        self._update_running(mean, var)
-        # The normalization itself (float32 inside, the output in the
-        # input's dtype, as flax casts it) and its gradient through the
-        # batch statistics; torch.batch_norm, as flax, also takes one
-        # value per channel (F.batch_norm refuses it). The scale is an
-        # explicit 1: CUDA's backward for a bfloat16 input returns no bias
-        # gradient without one.
-        return torch.batch_norm(x, torch.ones_like(self.bias), self.bias,
-                                None, None, True, 0.0, BN_EPSILON,
-                                torch.backends.cudnn.enabled)
+            y = F.batch_norm(x, self.mean, self.var, None, self.bias,
+                             False, 0.0, BN_EPSILON)
+        elif self.gather_over_ranks is not None:
+            y = self._forward_synced(x)
+        elif relu:
+            return batch_norm_relu.batch_norm_relu(
+                x, self.bias, self.mean, self.var, self.momentum,
+                BN_EPSILON)
+        else:
+            y = batch_norm_relu.batch_norm_train_reference(
+                x, self.bias, self.mean, self.var, self.momentum,
+                BN_EPSILON)
+        return F.relu(y) if relu else y
 
 
 @contextlib.contextmanager
@@ -176,9 +173,9 @@ class ConvBN(nn.Module):
         conv = self.conv
         bias = None if conv.bias is None else conv.bias.to(x.dtype)
         x = conv._conv_forward(x, conv.weight.to(x.dtype), bias)
-        if self.bn is not None:
-            x = self.bn(x)
-        return F.relu(x)
+        if self.bn is None:
+            return F.relu(x)
+        return self.bn(x, relu=True)
 
 
 class _BoxFilter3x3(torch.autograd.Function):

@@ -22,7 +22,11 @@ they are taken. Past `CAP` records, those whose events have completed
 are folded into per-name totals. `summary()` synchronizes once and gives
 per name the calls, host ms, device ms (end event less start event, on
 the stream) and self ms (device ms less that of the spans opened
-inside it). `reset()` clears both.
+inside it).
+
+`count(name, n)` adds to a named counter while spans are on, such as
+which path each training-mode batch norm took; `counts()` reads them.
+`reset()` clears the records, the totals and the counters.
 """
 
 from __future__ import annotations
@@ -84,6 +88,15 @@ class Recorder:
         self._records: List[Record] = []
         self._totals: Dict[str, _Total] = {}
         self._fold_at = cap
+        self._counts: Dict[str, int] = {}
+
+    def count(self, name: str, n: int = 1):
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
 
     def add(self, record: Record):
         with self._lock:
@@ -132,6 +145,7 @@ class Recorder:
             self._records = []
             self._totals = {}
             self._fold_at = self.cap
+            self._counts = {}
 
 
 def _fold(totals: Dict[str, _Total], r: Record):
@@ -184,12 +198,23 @@ class _Span:
         return False
 
 
+def on() -> bool:
+    """Whether spans and counters record now."""
+    return bool(_recording or _profiler._is_profiler_enabled)
+
+
 def span(name: str, step: Optional[int] = None):
     """A context around one phase named `name`; `step` identifies the
     step that it and the spans opened inside it belong to."""
-    if not (_recording or _profiler._is_profiler_enabled):
+    if not on():
         return _NOOP
     return _Span(name, step)
+
+
+def count(name: str, n: int = 1):
+    """Adds `n` to the counter `name` while spans are on."""
+    if on():
+        RECORDER.count(name, n)
 
 
 @contextlib.contextmanager
@@ -211,6 +236,10 @@ def records() -> List[Record]:
 
 def summary() -> Dict[str, Dict[str, Optional[float]]]:
     return RECORDER.summary()
+
+
+def counts() -> Dict[str, int]:
+    return RECORDER.counts()
 
 
 def reset():
