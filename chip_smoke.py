@@ -30,6 +30,15 @@ Phases:
      94, beside the 16-byte-an-element bound, the plain version and
      torch's own batch_norm + relu (`library_ms`, which the port never
      calls). Their launches are counted on the train step in phase 14.
+     Then the pool kernels (`phase_pool`): every distinct pool shape of
+     both presets at batch 2,048 (the 3x3 box filter and the 3x3
+     stride-2 max pool, 13 pools a pass), forward and backward held bit
+     for bit to torch's own CUDA pools (the plain version: the code
+     before the kernels) in bfloat16 and float32, run twice (bit-equal),
+     and timed in bfloat16 beside the byte floor (each pool's input and
+     output once each way), the plain version and torch's library call.
+     Phase 14 counts their launches on the train step: 13 forward and 13
+     backward a micro-batch.
   3. Staged call_variants: write synthetic 100x221x7 WGS examples and a
      seeded checkpoint with the port's own writers, run the CLI
      (`deepvariant_tpu_torch.scripts.call_variants.main`) on the card at
@@ -1086,6 +1095,186 @@ def bn_entry(name, ms, layers, errors) -> dict:
         "launches": None,   # phase 14's train steps
         "layers": layers,
         "max_rel_err": errors,
+        "ms": ms["kernel"],
+        "kernel_ms": ms["kernel"],
+        "forward_ms": ms["forward"],
+        "backward_ms": ms["backward"],
+        "plain_ms": ms["plain"],
+        "bound_ms": ms["bound"],
+        "bound_by": "bytes",
+        "library_ms": ms["library"],
+    }
+
+
+def network_pools(shape) -> list:
+    """[(kind, C, H, W, count)] of the inputs of InceptionV3's 13 pools
+    ('box' for the 3x3 box filter, 'max' for the 3x3 stride-2 max pool)
+    at an (H, W, C) pileup, in the order a forward first runs them (a
+    forward on the CPU)."""
+    import torch
+
+    from deepvariant_tpu_torch.models.inception_v3 import InceptionV3
+    from deepvariant_tpu_torch.ops import pool
+
+    seen = []
+    real = {"box": pool.box3x3, "max": pool.max3x3s2}
+
+    def spy(kind):
+        def watched(x):
+            seen.append((kind,) + tuple(x.shape[1:]))
+            return real[kind](x)
+        return watched
+
+    try:
+        pool.box3x3, pool.max3x3s2 = spy("box"), spy("max")
+        with torch.no_grad():
+            InceptionV3(shape[2]).eval()(torch.zeros((1,) + tuple(shape)))
+    finally:
+        pool.box3x3, pool.max3x3s2 = real["box"], real["max"]
+    order = list(dict.fromkeys(seen))
+    return [k + (seen.count(k),) for k in order]
+
+
+def phase_pool(device, card: str) -> list:
+    """The pool kernels at the main path's shapes: every distinct pool
+    shape of both presets at batch 2,048, held bit for bit to torch's own
+    CUDA pools (the plain version: the code before the kernels) in
+    bfloat16 and float32, run twice (bit-equal), and timed forward and
+    backward in bfloat16 beside the byte floor (each pool's input and
+    output once each way), the plain version and torch's library call.
+    Their launches on the train step are counted in phase 14
+    (`time_train_steps`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepvariant_tpu_torch.ops import pool
+
+    batch = 2048
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+
+    def tensor(shape, dtype):
+        n, c, h, w = shape
+        return torch.randn((n, h, w, c), device=device, generator=gen
+                           ).to(dtype).permute(0, 3, 1, 2)
+
+    def kernels(kind, x, dy):
+        if kind == "box":
+            return pool.box3x3_kernel(x), pool.box3x3_kernel(dy)
+        return (pool.max3x3s2_forward_kernel(x),
+                pool.max3x3s2_backward_kernel(dy, x))
+
+    def plain(kind, x, dy):
+        """The code before the kernels: the box filter's forward and its
+        backward (the pool of dy) through F.avg_pool2d; F.max_pool2d and
+        its autograd backward."""
+        if kind == "box":
+            return (F.avg_pool2d(x, 3, 1, 1, count_include_pad=True),
+                    F.avg_pool2d(dy, 3, 1, 1, count_include_pad=True))
+        xr = x.detach().requires_grad_(True)
+        y = F.max_pool2d(xr, 3, stride=2)
+        return (y.detach(),) + torch.autograd.grad(y, xr, dy)
+
+    def library(kind, x, dy):
+        """torch's own pool with its own backward (for the box filter,
+        avg_pool2d's backward, wrong for channels_last input: timed
+        only)."""
+        xr = x.detach().requires_grad_(True)
+        y = F.avg_pool2d(xr, 3, 1, 1, count_include_pad=True) \
+            if kind == "box" else F.max_pool2d(xr, 3, stride=2)
+        return (y.detach(),) + torch.autograd.grad(y, xr, dy)
+
+    def same_bits(a, b):
+        ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.contiguous().view(ints[a.dtype]),
+            b.contiguous().view(ints[b.dtype]))
+
+    entries = []
+    for preset, shape in (("wgs", SHAPE), ("pacbio", LONGREAD_SHAPE)):
+        totals = {"kernel": 0.0, "forward": 0.0, "backward": 0.0,
+                  "plain": 0.0, "library": 0.0, "bound": 0.0}
+        calls = 0
+        for kind, c, h, w, count in network_pools(shape):
+            calls += count
+            ho, wo = (h, w) if kind == "box" else \
+                ((h - 3) // 2 + 1, (w - 3) // 2 + 1)
+            for dtype in (torch.bfloat16, torch.float32):
+                x = tensor((batch, c, h, w), dtype)
+                dy = tensor((batch, c, ho, wo), dtype)
+                got = kernels(kind, x, dy)
+                again = kernels(kind, x, dy)
+                want = plain(kind, x, dy)
+                for what, a, b, r in zip(("forward", "backward"), got, want,
+                                         again):
+                    if not same_bits(a, b):
+                        bad = (a.float() != b.float()).sum().item()
+                        raise AssertionError(
+                            f"pool {kind} {preset} {batch}x{c}x{h}x{w} "
+                            f"{dtype}: the kernels' {what} differs from "
+                            f"torch's in {bad} elements")
+                    if not same_bits(a, r):
+                        raise AssertionError(
+                            f"pool {kind} {preset} {batch}x{c}x{h}x{w} "
+                            f"{dtype}: two runs of the {what} differ")
+                del got, again, want
+                if dtype != torch.bfloat16:
+                    del x, dy
+                    continue
+                reps = 20 if h * w > 100 else 40
+                if kind == "box":
+                    fwd = lambda: pool.box3x3_kernel(x)  # noqa: E731
+                    bwd = lambda: pool.box3x3_kernel(dy)  # noqa: E731
+                else:
+                    fwd = lambda: pool.max3x3s2_forward_kernel(x)  # noqa
+                    bwd = lambda: pool.max3x3s2_backward_kernel(  # noqa
+                        dy, x)
+                ms = {"forward": device_ms(fwd, reps),
+                      "backward": device_ms(bwd, reps),
+                      "plain": device_ms(lambda: plain(kind, x, dy), reps),
+                      "library": device_ms(lambda: library(kind, x, dy),
+                                           reps),
+                      "bound": 2 * 2 * (x.numel() + dy.numel())
+                      / H100_BYTES_PER_S * 1e3}
+                ms["kernel"] = ms["forward"] + ms["backward"]
+                for k in totals:
+                    totals[k] += count * ms[k]
+                print(f"[pool] {kind} {preset} {batch}x{c}x{h}x{w} (x{count})"
+                      f": bit-exact in bf16 and float32, repeat runs equal; "
+                      f"bf16 forward {ms['forward']:.4f} ms, backward "
+                      f"{ms['backward']:.4f}, floor {ms['bound']:.4f} "
+                      f"({100 * ms['bound'] / ms['kernel']:.1f}%), plain "
+                      f"{ms['plain']:.4f}, library {ms['library']:.4f}; "
+                      f"{card}")
+                entries.append(pool_entry(
+                    f"pool_{kind}_{preset}_{batch}x{c}x{h}x{w}", kind, ms,
+                    count))
+                del x, dy
+        if calls != 13:
+            raise AssertionError(f"{preset}: {calls} pools a pass, not 13")
+        entries.append(pool_entry(f"pool_{preset}_{batch}_all13", "both",
+                                  totals, 13))
+        print(f"[pool] {preset} all 13 pools at {batch}, bf16: kernels "
+              f"{totals['kernel']:.3f} ms a step (forward "
+              f"{totals['forward']:.3f}, backward {totals['backward']:.3f}),"
+              f" floor {totals['bound']:.3f} "
+              f"({100 * totals['bound'] / totals['kernel']:.1f}%), plain "
+              f"{totals['plain']:.3f}, library {totals['library']:.3f}; "
+              f"{card}")
+    torch.cuda.empty_cache()
+    return entries
+
+
+def pool_entry(name, kind, ms, pools) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "deepvariant_tpu_torch/csrc/pool.cu",
+        "replaces": None,
+        "tpu_kernel": None,
+        "launches": None,   # phase 14's train steps
+        "kind": kind,
+        "pools": pools,
+        "max_abs_err": 0.0,
         "ms": ms["kernel"],
         "kernel_ms": ms["kernel"],
         "forward_ms": ms["forward"],
@@ -3556,11 +3745,13 @@ def time_train_steps(data: dict, dtype_name: str, accum: int, device,
     TRAIN_BATCH x `accum` (forward, backward and update, back to back;
     CUDA events), each step's batch gathered on the card from the
     resident examples as train_resident gathers it. The batch norm + ReLU
-    kernels must launch 4 times a layer, 94 layers, in every micro-batch
-    of every step."""
+    kernels must launch 4 times a layer, 94 layers, and the pool kernels
+    13 times forward and 13 backward (the box filter 9 + 9, the max pool
+    4 + 4), in every micro-batch of every step."""
     import torch
 
     from deepvariant_tpu_torch.ops import batch_norm_relu as bnr
+    from deepvariant_tpu_torch.ops import pool
     from deepvariant_tpu_torch.training import train as train_lib
     from deepvariant_tpu_torch.training.config import TrainConfig
 
@@ -3578,6 +3769,7 @@ def time_train_steps(data: dict, dtype_name: str, accum: int, device,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bnr.batch_norm_relu.launches = 0
+    pool.box3x3.launches = pool.max3x3s2.launches = 0
     losses = []
     for idx in order[:warmup]:
         state, loss, _ = step(state, {k: v.index_select(0, idx)
@@ -3599,6 +3791,13 @@ def time_train_steps(data: dict, dtype_name: str, accum: int, device,
             f"train steps at {dtype_name} x{accum}: {bn_launches} batch "
             f"norm kernel launches in {steps + warmup} steps, not 4 x 94 x "
             f"{accum} a step")
+    micro_batches = accum * (steps + warmup)
+    pool_launches = (pool.box3x3.launches, pool.max3x3s2.launches)
+    if pool_launches != (18 * micro_batches, 8 * micro_batches):
+        raise AssertionError(
+            f"train steps at {dtype_name} x{accum}: pool kernel launches "
+            f"{pool_launches} (box, max) in {micro_batches} micro-batches, "
+            "not 18 and 8 (13 + 13) a micro-batch")
     final_loss = float(torch.stack(losses).mean())
     if not math.isfinite(final_loss):
         raise AssertionError(f"train steps at {dtype_name} x{accum}: loss "
@@ -3611,9 +3810,11 @@ def time_train_steps(data: dict, dtype_name: str, accum: int, device,
           f"{peak / 2**30:.2f} GiB, {step_flops / 1e12:.3f} TFLOP/step = "
           f"{share:.2%} of the bf16 peak; mean loss {final_loss:.4f} over "
           f"{steps} steps; batch norm kernel launches {bn_launches} in "
-          f"{steps + warmup} steps (4 x 94 x {accum} a step); {card}")
+          f"{steps + warmup} steps (4 x 94 x {accum} a step); pool kernel "
+          f"launches {sum(pool_launches)} (26 x {accum} a step); {card}")
     return {"ms_per_step": ms, "examples_per_s": batch / (ms / 1e3),
             "bn_launches": bn_launches,
+            "pool_launches": sum(pool_launches),
             "max_memory_allocated": peak, "bf16_peak_share": share,
             "tflop_per_step": step_flops / 1e12}
 
@@ -6018,6 +6219,7 @@ def main() -> int:
     kernels = phase_paint_kernel(device)
     wgs_kernel, longread_kernel, stream_kernel = kernels
     bn_kernels = phase_batch_norm_relu(device, card)
+    pool_kernels = phase_pool(device, card)
     from deepvariant_tpu_torch.make_examples.pileup import PileupOptions
     from deepvariant_tpu_torch.make_examples.presets import (
         apply_pileup_preset,
@@ -6095,6 +6297,9 @@ def main() -> int:
         for e in bn_kernels:
             e["launches"] = \
                 training_numbers["train_timing"]["bfloat16_x4"]["bn_launches"]
+        for e in pool_kernels:
+            e["launches"] = training_numbers["train_timing"][
+                "bfloat16_x4"]["pool_launches"]
         # The small model on phase 11's sample (rows, training, the gate
         # on the main path), run_oracle_inference, and the export of phase
         # 14's checkpoint, the Keras import and the stem rewrites.
@@ -6134,6 +6339,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_region_encoder(device)
     kernels.extend(bn_kernels)
+    kernels.extend(pool_kernels)
 
     for k in kernels:
         if k.get("expected_launches") == 0:

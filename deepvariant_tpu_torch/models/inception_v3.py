@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepvariant_tpu_torch.device import resolve_device
-from deepvariant_tpu_torch.ops import batch_norm_relu
+from deepvariant_tpu_torch.ops import batch_norm_relu, pool
 
 NUM_CLASSES = 3  # {hom-ref, het, hom-alt} (reference dv_constants.py:77)
 DEFAULT_BACKBONE_DROPOUT_RATE = 0.2  # keras_modeling.py:43
@@ -178,23 +178,6 @@ class ConvBN(nn.Module):
         return self.bn(x, relu=True)
 
 
-class _BoxFilter3x3(torch.autograd.Function):
-    """The 3x3 stride-1 average pool with its padded zeros counted (flax's
-    SAME avg_pool). This map is self-adjoint, so its backward is the same
-    pool of the incoming gradient: torch's own avg_pool2d backward on CUDA
-    returns wrong gradients for channels_last input (seen with torch
-    2.11.0 and cuDNN 9.22 on an H100), and the forward is right."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return F.avg_pool2d(x, 3, stride=1, padding=1, count_include_pad=True)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return F.avg_pool2d(grad, 3, stride=1, padding=1,
-                            count_include_pad=True)
-
-
 def _space_to_depth_2x2(x):
     """(B, H, W, C) -> (B, H/2, W/2, 4C), zero-padding odd H/W.
 
@@ -214,11 +197,11 @@ def _space_to_depth_2x2(x):
 
 def _avg_pool_same(x):
     # flax avg_pool counts the padded zeros, as count_include_pad does.
-    return _BoxFilter3x3.apply(x)
+    return pool.box3x3(x)
 
 
 def _max_pool_v(x):
-    return F.max_pool2d(x, 3, stride=2)
+    return pool.max3x3s2(x)
 
 
 class InceptionA(nn.Module):

@@ -68,6 +68,7 @@ class Geometry:
     ty: int
 
 
+@functools.lru_cache(maxsize=None)
 def geometry(rows: int, channels: int, itemsize: int,
              sms: int) -> Geometry:
     """The launch geometry for `rows` x `channels` elements of `itemsize`
@@ -139,6 +140,17 @@ def _kernel(entry):
     return fn
 
 
+def _launch(entry, x, *args):
+    """Calls `entry` with `args` and the current stream of x's device,
+    whose raw pointer is the cheapest to read on every step; the device
+    is switched only where x is not on the current one."""
+    index = x.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(entry, x, *args)
+    return _kernel(entry)(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 def _aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0
 
@@ -197,14 +209,12 @@ def forward_kernel(x, bias, running_mean, running_var, momentum: float,
     mean = torch.empty(c, dtype=acc, device=x.device)
     rstd = torch.empty(c, dtype=acc, device=x.device)
     part = torch.empty(3 * g.chunks * c, dtype=acc, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel("dv_batch_norm_relu_forward")(
-            _DTYPES[x.dtype], x.data_ptr(), y.data_ptr(), bias.data_ptr(),
-            running_mean.data_ptr(), running_var.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), part.data_ptr(), g.rows, c,
-            g.rows_per_chunk, g.chunks, g.tiles, g.vc, g.ty, momentum,
-            1 - momentum, eps, stream)
+    err = _launch(
+        "dv_batch_norm_relu_forward", x, _DTYPES[x.dtype], x.data_ptr(),
+        y.data_ptr(), bias.data_ptr(), running_mean.data_ptr(),
+        running_var.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        part.data_ptr(), g.rows, c, g.rows_per_chunk, g.chunks, g.tiles,
+        g.vc, g.ty, momentum, 1 - momentum, eps)
     if err != 0:
         raise RuntimeError(f"batch norm forward kernels failed: CUDA error "
                            f"{err}")
@@ -228,13 +238,11 @@ def backward_kernel(dy, x, bias, mean, rstd):
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     dbias = torch.empty_like(bias)
     part = torch.empty(2 * g.chunks * c, dtype=mean.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel("dv_batch_norm_relu_backward")(
-            _DTYPES[x.dtype], x.data_ptr(), dy.data_ptr(), ld, dx.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), bias.data_ptr(),
-            part.data_ptr(), dbias.data_ptr(), g.rows, c, g.rows_per_chunk,
-            g.chunks, g.tiles, g.vc, g.ty, stream)
+    err = _launch(
+        "dv_batch_norm_relu_backward", x, _DTYPES[x.dtype], x.data_ptr(),
+        dy.data_ptr(), ld, dx.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        bias.data_ptr(), part.data_ptr(), dbias.data_ptr(), g.rows, c,
+        g.rows_per_chunk, g.chunks, g.tiles, g.vc, g.ty)
     if err != 0:
         raise RuntimeError(f"batch norm backward kernels failed: CUDA error "
                            f"{err}")

@@ -47,6 +47,7 @@ update. `train()` runs over the group: rank 0 writes the checkpoints.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -66,6 +67,7 @@ from deepvariant_tpu_torch.models.inception_v3 import (
     normalize_pileup,
     sync_batch_norm,
 )
+from deepvariant_tpu_torch.ops import batch_norm_relu, pool
 from deepvariant_tpu_torch.parallel.distribute import (
     DataParallel,
     data_parallel_mesh,
@@ -242,12 +244,33 @@ def _kernel_names(params: Tree) -> List[str]:
 
 
 def _l2_kernel_penalty(params: Tree, weight_decay: float):
-    """Sum of L2 over every conv/dense kernel (keras add_l2_regularizers)."""
+    """Sum of L2 over every conv/dense kernel (keras add_l2_regularizers),
+    without a graph: each kernel's norm in one multi-tensor op, squared."""
     if not weight_decay:
         return 0.0
-    total = torch.stack([params[k].float().square().sum()
-                         for k in _kernel_names(params)]).sum()
-    return weight_decay * total
+    with torch.no_grad():
+        norms = torch._foreach_norm([params[k].float()
+                                     for k in _kernel_names(params)])
+        return weight_decay * torch.stack(norms).square().sum()
+
+
+def _add_l2_gradient(grads: Tree, params: Tree, weight_decay: float):
+    """Adds the L2 penalty's gradient, 2 * weight_decay * kernel, to each
+    kernel's gradient in place, in one multi-tensor op."""
+    if weight_decay:
+        names = _kernel_names(params)
+        with torch.no_grad():
+            torch._foreach_add_(_values(grads, names),
+                                _values(params, names),
+                                alpha=2.0 * weight_decay)
+
+
+def _copies(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """New tensors equal to `tensors`, copied in one multi-tensor op."""
+    out = [torch.empty_like(t) for t in tensors]
+    if out:
+        torch._foreach_copy_(out, tensors)
+    return out
 
 
 def weighted_loss_sum(
@@ -286,17 +309,94 @@ def loss_fn(
         weight_total, 1e-6)
 
 
+def dropout_seed(seed: int, step: int, micro: int, rank: int = 0) -> int:
+    """The seed of one micro step's dropout generator, from (seed, step,
+    micro step, rank) so that a run is deterministic; rank 0 draws what
+    the one-rank step draws."""
+    entropy = [seed, step, micro] + ([rank] if rank else [])
+    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+    return int(words[0]) << 31 | int(words[1]) >> 1
+
+
 def dropout_generator(seed: int, step: int, micro: int,
                       device: torch.device, rank: int = 0
                       ) -> torch.Generator:
-    """A generator for one micro step's dropout masks, seeded from
-    (seed, step, micro step, rank) so that a run is deterministic; rank
-    0 draws what the one-rank step draws."""
-    entropy = [seed, step, micro] + ([rank] if rank else [])
-    words = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
+    """A generator for one micro step's dropout masks, seeded with
+    `dropout_seed`."""
     generator = torch.Generator(device=device)
-    generator.manual_seed(int(words[0]) << 31 | int(words[1]) >> 1)
+    generator.manual_seed(dropout_seed(seed, step, micro, rank))
     return generator
+
+
+class _MicroGraph:
+    """One micro-batch's forward and backward, `run(leaves, batch_stats,
+    micro_batch, generator)`, captured once as a CUDA graph over static
+    copies of its inputs, and replayed for every later micro-batch of the
+    same shapes: one launch where the eager call makes about a thousand,
+    so the host no longer paces the card.
+
+    A call copies its inputs in, seeds the graph's dropout generator
+    (registered with the graph, so a replay draws what a fresh generator
+    with that seed draws), replays, copies batch norm's running
+    statistics back into `batch_stats` and returns new tensors. The
+    replay runs the eager call's kernels on the same inputs, so it
+    computes what the eager call computes. The port's kernel launch
+    counters move by the captured launches on every replay."""
+
+    def __init__(self, run, params: Tree, batch_stats: Tree,
+                 micro_batch: Dict[str, torch.Tensor]):
+        device = next(iter(params.values())).device
+        self.leaves = {k: v.detach().clone().requires_grad_(True)
+                       for k, v in params.items()}
+        self.stats = {k: v.clone() for k, v in batch_stats.items()}
+        self.batch = {k: v.clone() for k, v in micro_batch.items()}
+        self.generator = torch.Generator(device=device)
+        args = (self.leaves, self.stats, self.batch, self.generator)
+        self.counters = (batch_norm_relu.batch_norm_relu, pool.box3x3,
+                         pool.max3x3s2)
+        before = [c.launches for c in self.counters]
+        # torch's rule for a capture: warm up on a side stream first.
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            run(*args)
+        torch.cuda.current_stream(device).wait_stream(side)
+        warm = [c.launches for c in self.counters]
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(self.generator)
+        with torch.cuda.graph(self.graph):
+            self.out = run(*args)
+        # Each micro-batch counts its launches once: the warm-up and the
+        # capture are not counted, every replay is.
+        self.launches = []
+        for counter, n, w in zip(self.counters, before, warm):
+            self.launches.append(counter.launches - w)
+            counter.launches = n
+
+    def __call__(self, params: Tree, batch_stats: Tree,
+                 micro_batch: Dict[str, torch.Tensor], seed: int):
+        leaf_keys, stat_keys = _keys(self.leaves), _keys(self.stats)
+        with torch.no_grad():
+            torch._foreach_copy_(_values(self.leaves, leaf_keys),
+                                 _values(params, leaf_keys))
+            if stat_keys:
+                torch._foreach_copy_(_values(self.stats, stat_keys),
+                                     _values(batch_stats, stat_keys))
+            for k, v in self.batch.items():
+                v.copy_(micro_batch[k])
+        self.generator.manual_seed(seed)
+        self.graph.replay()
+        for counter, n in zip(self.counters, self.launches):
+            counter.launches += n
+        data, penalty, probs, grads = self.out
+        if stat_keys:
+            with torch.no_grad():
+                torch._foreach_copy_(_values(batch_stats, stat_keys),
+                                     _values(self.stats, stat_keys))
+        return (data.clone(),
+                penalty.clone() if torch.is_tensor(penalty) else penalty,
+                probs.clone(),
+                dict(zip(leaf_keys, _copies(_values(grads, leaf_keys)))))
 
 
 # ---------------------------------------------------------------------------
@@ -342,21 +442,30 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
     is its identifier) around `train.forward` (the pileup's
     normalization through the loss and L2 penalty) and `train.backward`
     (`torch.autograd.grad`), once per micro-batch, and `train.update`
-    (the optimizer, `apply_updates` and the EMA)."""
+    (the optimizer, `apply_updates` and the EMA).
+
+    On one card (no `data_parallel`) the micro-batch's forward and
+    backward run as a CUDA graph (`_MicroGraph`) from the second call of
+    its shape on, with the same results bit for bit; the optimizer and
+    the EMA run eagerly. While spans record, the eager path runs."""
     accum = max(int(getattr(
         config, "gradient_accumulation_steps", 1) or 1), 1)
     dp = data_parallel if data_parallel is not None and \
         data_parallel.grouped else None
     rank = dp.rank if dp is not None else 0
+    # The eager step's host time can pace the card, so what runs on every
+    # step is kept cheap: the module walks of train() and sync_batch_norm
+    # only where they change something.
+    modules = list(model.modules())
 
-    def micro_grad(params, batch_stats, micro_batch, generator,
-                   weight_total):
+    def forward_backward(leaves, batch_stats, micro_batch, generator,
+                         weight_total=None):
         with trace.span("train.forward"):
-            leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in params.items()}
             x = normalize_pileup(micro_batch["images"], model.compute_dtype)
+            # InceptionV3 ties no weights: no search for ties.
             probs = functional_call(model, {**leaves, **batch_stats}, (x,),
-                                    {"generator": generator})
+                                    {"generator": generator},
+                                    tie_weights=False)
             data = loss_fn(
                 probs,
                 micro_batch["labels"],
@@ -364,15 +473,41 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
                 config.label_smoothing,
                 weight_total,
             )
+            # The penalty and its gradient leave autograd's graph: some
+            # five hundred launches a step fewer. Over ranks the penalty
+            # enters the gradient sum once.
             penalty = _l2_kernel_penalty(leaves, config.weight_decay)
-            # Over ranks the penalty enters the gradient sum once.
-            objective = data + penalty if rank == 0 else data
         with trace.span("train.backward"):
-            grads = torch.autograd.grad(objective, list(leaves.values()))
-        if torch.is_tensor(penalty):
-            penalty = penalty.detach()
-        return (data.detach(), penalty, probs.detach(),
-                dict(zip(leaves, grads)))
+            grads = dict(zip(leaves, torch.autograd.grad(
+                data, list(leaves.values()))))
+            if rank == 0:
+                _add_l2_gradient(grads, leaves, config.weight_decay)
+        return data.detach(), penalty, probs.detach(), grads
+
+    # The graph is captured on the second call of a shape (the first
+    # warms the kernels up); one graph, other shapes run eagerly. While
+    # spans record (a profiler), the eager call runs, so that they see
+    # its phases.
+    graphs: Dict[tuple, _MicroGraph] = {}
+    seen = set()
+
+    def micro_grad(params, batch_stats, micro_batch, seed, weight_total):
+        device = next(iter(params.values())).device
+        if device.type == "cuda" and dp is None and not trace.on():
+            key = tuple((k, v.shape, v.dtype, v.stride())
+                        for k, v in micro_batch.items())
+            if key in seen and not graphs:
+                graphs[key] = _MicroGraph(forward_backward, params,
+                                          batch_stats, micro_batch)
+            if key in graphs:
+                return graphs[key](params, batch_stats, micro_batch, seed)
+            seen.add(key)
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        return forward_backward(leaves, batch_stats, micro_batch, generator,
+                                weight_total)
 
     def train_step(state: dict, batch: Dict[str, torch.Tensor]):
         step = int(state["step"])
@@ -380,10 +515,12 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
             return apply_step(state, batch, step)
 
     def apply_step(state, batch, step):
-        model.train()
+        if not all(m.training for m in modules):
+            model.train()
         params = state["params"]
-        device = next(iter(params.values())).device
-        batch_stats = {k: v.clone() for k, v in state["batch_stats"].items()}
+        stats_keys = _keys(state["batch_stats"])
+        batch_stats = dict(zip(stats_keys, _copies(
+            _values(state["batch_stats"], stats_keys))))
         size = batch["labels"].shape[0] // accum
         micros = [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
                   for i in range(accum)]
@@ -392,11 +529,12 @@ def make_train_step(model: torch.nn.Module, tx: Optimizer,
             totals = dp.all_reduce_sum(torch.stack(
                 [m["sample_weights"].sum() for m in micros]))
         grad_sum, data_losses, penalties, all_probs = None, [], [], []
-        with sync_batch_norm(model, dp.gather_over_ranks if dp else None):
+        with sync_batch_norm(model, dp.gather_over_ranks) if dp else \
+                contextlib.nullcontext():
             for i, micro in enumerate(micros):
                 data_i, penalty_i, probs_i, g = micro_grad(
                     params, batch_stats, micro,
-                    dropout_generator(config.seed, step, i, device, rank),
+                    dropout_seed(config.seed, step, i, rank),
                     totals[i])
                 if grad_sum is None:
                     grad_sum = g

@@ -37,7 +37,7 @@ MODULES = tuple("deepvariant_tpu_torch." + name for name in (
     "make_examples.presets", "make_examples.shuffle",
     "make_examples.variant_caller", "make_examples.vcf_candidate_importer",
     "models.checkpoint", "models.inception_v3", "models.keras_import",
-    "ops._build", "ops.batch_norm_relu", "ops.pileup_paint",
+    "ops._build", "ops.batch_norm_relu", "ops.pileup_paint", "ops.pool",
     "parallel.distribute", "parallel.multihost", "parallel.stream_pipeline",
     "phasing.direct_phasing", "phasing.merge_phased_reads",
     "phasing.methylation_aware_phasing",

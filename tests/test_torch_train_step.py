@@ -238,6 +238,48 @@ def test_l2_penalty_covers_every_kernel_and_nothing_else():
     assert port_train._l2_kernel_penalty(params, 0.0) == 0.0
 
 
+@pytest.mark.parametrize("weight_decay", [0.0, 0.003])
+def test_l2_penalty_and_its_gradient_equal_autograds(weight_decay):
+    """The penalty outside autograd's graph, and its gradient added after
+    `autograd.grad`, give what autograd gives for the sum of squares."""
+    gen = torch.Generator().manual_seed(5)
+    params = {"a.conv.weight": torch.randn(4, 3, 3, 3, generator=gen),
+              "a.bn.bias": torch.randn(4, generator=gen),
+              "head.weight": torch.randn(3, 8, generator=gen)}
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    penalty = weight_decay * torch.stack(
+        [leaves[k].square().sum() for k in port_train._kernel_names(leaves)]
+    ).sum() if weight_decay else 0.0
+    data = sum((v * (i + 1.5)).sum() for i, v in enumerate(leaves.values()))
+    want = torch.autograd.grad(data + penalty, list(leaves.values()))
+    grads = dict(zip(params, torch.autograd.grad(
+        sum((v * (i + 1.5)).sum() for i, v in enumerate(leaves.values())),
+        list(leaves.values()))))
+    port_train._add_l2_gradient(grads, params, weight_decay)
+    for k, w in zip(params, want):
+        torch.testing.assert_close(grads[k], w, rtol=1e-6, atol=1e-7)
+    got = port_train._l2_kernel_penalty(params, weight_decay)
+    assert not torch.is_tensor(got) or not got.requires_grad
+    np.testing.assert_allclose(float(got), float(penalty), rtol=1e-6)
+
+
+def test_step_copies_the_statistics_and_puts_the_model_in_training():
+    """The step's statistics are new tensors, and a model left in eval
+    mode is put back in training mode."""
+    _, cfg = _configs("sgd", 1, False, 0, 0.0, "")
+    model = TorchTwin()
+    tx, _ = port_train.make_optimizer(cfg, 1)
+    state = port_train.init_state(model, torch_variables(twin_variables(0)),
+                                  tx)
+    step = port_train.make_train_step(model, tx, cfg)
+    model.eval()
+    new, _, _ = step(state, to_torch(_batches(cfg)[0]))
+    assert all(m.training for m in model.modules())
+    assert state["batch_stats"].keys() == new["batch_stats"].keys()
+    for k, v in state["batch_stats"].items():
+        assert new["batch_stats"][k].data_ptr() != v.data_ptr()
+
+
 def test_optimizer_state_layout_is_optax():
     """init() gives optax's tree (as flax writes it) for each optimizer."""
     variables = twin_variables(0)
